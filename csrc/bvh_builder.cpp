@@ -4,7 +4,7 @@
 // (rtcCommitScene with RTC_BUILD_QUALITY_HIGH, src/scene.cpp:20-27). This
 // is the from-scratch replacement: a standard 16-bin surface-area-
 // heuristic top-down builder producing the *threaded* (preorder +
-// skip-link) node layout the TPU traversal consumes directly.
+// skip-link) node layout the device traversal consumes directly.
 //
 // Exposed as a C ABI for ctypes; a numpy Morton/median builder
 // (lajolla_tpu/ops/bvh.py) is the fallback when this library isn't

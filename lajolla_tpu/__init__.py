@@ -1,7 +1,7 @@
-"""lajolla_tpu — a TPU-native wavefront physically-based renderer.
+"""lajolla_tpu — a wavefront physically-based renderer in JAX.
 
 A from-scratch JAX/XLA re-design of the lajolla CPU path tracer
-(UCSD CSE 272; reference layout documented in /root/repo/SURVEY.md).
+(UCSD CSE 272; reference layout documented in SURVEY.md).
 The recursive CPU megakernel becomes a SoA wavefront pipeline under
 `lax.while_loop`; Embree becomes a host-built BVH traversed by a
 branch-free threaded traversal on device; `std::variant` polymorphism

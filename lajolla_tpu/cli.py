@@ -32,6 +32,13 @@ def main(argv=None):
                     help="print per-block progress")
     args = ap.parse_args(argv)
 
+    import jax
+    from lajolla_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
+    devs = jax.devices()
+    print(f"Device: {devs[0].platform} {devs[0].device_kind} "
+          f"(count {len(devs)}).")
+
     for scene_file in args.scenes:
         if not os.path.isfile(scene_file):
             ap.error(f"scene file not found: {scene_file}")

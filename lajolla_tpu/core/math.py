@@ -135,14 +135,14 @@ def make_frame(n):
 def to_local(frame, v):
     """World → frame-local. frame: (..., 3, 3) rows (t,b,n); v: (..., 3).
 
-    Elementwise mul+sum, NOT einsum/dot: XLA lowers dot_general at
-    DEFAULT precision to bf16 MXU passes on TPU (8-bit mantissa), which
-    quantizes every shading-frame transform — measured as a
-    depth-compounding brightness bias on near-specular glass chains
-    (matpreview teapot +4% film mean at 64x64) because Fresnel near the
-    TIR boundary is blown across the critical angle. The elementwise
-    form runs exact fp32 on the VPU and is also faster (a 3-wide
-    contraction can't feed the 128x128 systolic array)."""
+    Elementwise mul+sum, NOT einsum/dot: a dot_general at DEFAULT
+    precision may run with a reduced-precision mantissa on an
+    accelerator (bf16 passes, or TF32 on a GPU), which quantizes every
+    shading-frame transform — once seen as a depth-compounding
+    brightness bias on near-specular glass chains (matpreview teapot +4%
+    film mean at 64x64) because Fresnel near the TIR boundary is blown
+    across the critical angle. The elementwise form is exact fp32, and a
+    3-wide contraction gains nothing from a matrix unit."""
     return (frame * v[..., None, :]).sum(-1)
 
 

@@ -96,8 +96,8 @@ def parse_matrix_string(s):
 
 def xform_point(m, p):
     """m: (4,4), p: (..., 3). Elementwise mul+sum, not einsum: dot_general
-    at DEFAULT precision is bf16 on the TPU MXU — see core/math.to_local
-    for the measured bias this caused."""
+    at DEFAULT precision may drop mantissa bits on an accelerator — see
+    core/math.to_local for the bias this caused."""
     r = (m[:3, :3] * p[..., None, :]).sum(-1) + m[:3, 3]
     w = (m[3, :3] * p).sum(-1) + m[3, 3]
     return r / w[..., None]

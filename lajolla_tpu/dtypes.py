@@ -1,7 +1,7 @@
 """Global numeric policy.
 
 The reference renderer computes in fp64 throughout (src/lajolla.h:23).
-TPUs natively compute fp32 (fp64 is emulated and ~100x slower), so the
+Accelerators compute fp32 far faster than fp64, so the
 whole device-side pipeline runs fp32 with numerically-stable primitives
 (stable quadratics, offset-from-surface epsilons scaled by scene extent)
 and the statistical RMSE gate verifies the result.

@@ -1,7 +1,7 @@
 """Differentiable path tracing (beyond the reference).
 
 The reference is a forward C++ renderer; gradients are out of its
-scope. Here the TPU-native design pays off: the scalar advance step
+scope. Here the wavefront design pays off: the scalar advance step
 (`path._advance_lane`) is a pure JAX function, so a fixed-depth
 `lax.scan` over it yields a renderer that reverse-mode differentiates
 end-to-end with `jax.grad` — scene parameters (albedos, roughness,

@@ -14,10 +14,10 @@ from lajolla_tpu.core.distribution import sample_alias, sample_cdf
 from lajolla_tpu.core.math import (cross, dot, distance_squared, make_frame,
                                    normalize, to_world)
 from lajolla_tpu.core.transform import xform_vector
-from lajolla_tpu.scene.soa import fetch_light, fetch_shape, fetch_tri
+from lajolla_tpu.scene.soa import (fetch_light, fetch_row, fetch_shape,
+                                   fetch_tri)
 from lajolla_tpu.scene.texeval import lookup_trilinear, image_mip_level
 from lajolla_tpu.scene.types import LIGHT_ENVMAP, SHAPE_SPHERE
-from lajolla_tpu.ops.gather import fast_gather
 
 PI = 3.141592653589793
 TWO_PI = 6.283185307179586
@@ -37,7 +37,7 @@ def sample_light(scene, u):
 
 
 def light_pmf(scene, light_id):
-    return fast_gather(scene.light_pmf, jnp.maximum(light_id, 0))
+    return fetch_row(scene.light_pmf, jnp.maximum(light_id, 0))
 
 
 def _sample_point_on_mesh(scene, shape, uv, w):

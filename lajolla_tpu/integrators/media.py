@@ -113,16 +113,14 @@ def volume_aabb_hit(scene, vol_id, o, d, tfar):
 # Medium properties (medium.h:25-27)
 #
 # All property reads go through ONE wide-row fetch (scene.med_tab,
-# compile.py) — per-lane narrow gathers in the volpath inner loops were
-# measured at ~2/3 of vol_cbox wall time. The one-hot MXU fetch
-# (ops/gather.py) is exact and ~free at typical NM <= 4.
+# compile.py) instead of one narrow per-lane gather per property.
 # ---------------------------------------------------------------------------
 
 def med_row(scene, med_id):
     """(46,) wide medium property row; med_id < 0 reads row 0 (callers
     mask vacuum lanes themselves, as with the old accessors)."""
-    from lajolla_tpu.ops.gather import fast_gather
-    return fast_gather(scene.med_tab, jnp.maximum(med_id, 0))
+    from lajolla_tpu.scene.soa import fetch_row
+    return fetch_row(scene.med_tab, jnp.maximum(med_id, 0))
 
 
 def get_majorant(scene, med_id, o, d, tfar, row=None):

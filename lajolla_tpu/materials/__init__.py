@@ -66,11 +66,11 @@ def _dispatch(scene, mat_id, method, args, adjoint):
     if len(present) == 1:
         return getattr(mods[present[0]], method)(scene, mat_id_c, *args,
                                                  adjoint)
-    from lajolla_tpu.ops.gather import fast_gather
     table = np.zeros(T.NUM_MAT_TYPES, np.int32)
     for i, t in enumerate(present):
         table[t] = i
-    mat_type = fast_gather(scene.mat_tab, mat_id_c)[0].astype(jnp.int32)
+    from lajolla_tpu.scene.soa import fetch_row
+    mat_type = fetch_row(scene.mat_tab, mat_id_c)[0].astype(jnp.int32)
     branch = jnp.asarray(table)[mat_type]
     return jax.lax.switch(
         branch,

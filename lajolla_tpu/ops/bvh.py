@@ -1,6 +1,6 @@
 """BVH: host-side builder (numpy) + device-side threaded traversal (JAX).
 
-This is the TPU-native replacement for Embree (src/intersection.cpp:32,83;
+This is the device-side replacement for Embree (src/intersection.cpp:32,83;
 BVH built at rtcCommitScene, scene.cpp:20-27). Design:
 
 * Build (host, parse time — build speed is a non-goal, like the
@@ -49,23 +49,32 @@ _LIBBVH = None
 
 
 def _load_libbvh():
-    """ctypes handle to the native binned-SAH builder (csrc/libbvh.so),
-    building it on first use if a toolchain is available."""
+    """ctypes handle to the native binned-SAH builder (csrc/libbvh.so,
+    not tracked: built from csrc/bvh_builder.cpp with `make -C csrc` on
+    first use). Returns None, and says so once on stderr, when it cannot
+    be built or loaded; build_bvh then uses the numpy Morton builder."""
     global _LIBBVH
     if _LIBBVH is not None:
         return _LIBBVH or None
     import ctypes
     import os
     import subprocess
+    import sys
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     so = os.path.join(here, 'csrc', 'libbvh.so')
     if not os.path.exists(so):
         try:
-            subprocess.run(['make', '-C', os.path.join(here, 'csrc')],
-                           capture_output=True, timeout=120)
-        except Exception:
-            pass
+            r = subprocess.run(['make', '-C', os.path.join(here, 'csrc')],
+                               capture_output=True, text=True, timeout=120)
+            why = r.stderr.strip()[-200:]
+        except (OSError, subprocess.TimeoutExpired) as e:
+            why = str(e)
+        if not os.path.exists(so):
+            print(f"bvh: building csrc/libbvh.so failed ({why}); using the "
+                  "numpy Morton builder", file=sys.stderr)
+            _LIBBVH = False
+            return None
     try:
         lib = ctypes.CDLL(so)
         f = lib.bvh_build_sah
@@ -80,7 +89,9 @@ def _load_libbvh():
                       ctypes.POINTER(ctypes.c_int32)]
         _LIBBVH = lib
         return lib
-    except OSError:
+    except OSError as e:
+        print(f"bvh: loading csrc/libbvh.so failed ({e}); using the numpy "
+              "Morton builder", file=sys.stderr)
         _LIBBVH = False
         return None
 

@@ -1,15 +1,15 @@
-"""Binned two-level intersector for large scenes (TPU-native).
+"""Binned two-level intersector for large scenes.
 
 Per-lane BVH traversal is gather-bound and lockstep-divergent on a
-vector machine — the wrong shape for TPUs. This intersector re-casts
+vector machine. This intersector re-casts
 ray casting as dense compute over a flat two-level hierarchy:
 
   build:  cut the SAH tree into treelets ("clusters") of <= C triangles;
           store per-cluster AABBs and dense Woop transform blocks.
   phase A: slab-test every ray against every cluster AABB — a dense
           (N, K) elementwise pass (per-axis unrolled; never materialize
-          an (N, K, 3) tensor — 3 in the lane dim is a 42x padding
-          blowup on TPU).
+          an (N, K, 3) tensor — a minor dimension of 3 pads badly on
+          vector hardware).
   phase B: ordered rounds. Each round, every ray takes its nearest
           unvisited cluster (argmin over the (N, K) entry distances),
           fetches that cluster's triangle block with ONE wide gather,
@@ -26,11 +26,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-INF = jnp.float32(jnp.inf)
+INF = np.float32(np.inf)
 
-CLUSTER_TRIS = 256       # C (compile_scene passes 128 for the sweep path;
-                         # the resident lane-major kernel needs C % 128 == 0
-                         # — pack_sweep asserts this)
+CLUSTER_TRIS = 256       # C (compile_scene passes 128)
 MAX_ROUNDS = 256          # safety bound on ordered rounds
 
 
@@ -186,10 +184,8 @@ def _query(scene, o, d, tnear, tfar, any_hit):
 
 # The ordered-rounds loop is lockstep per chunk: it runs until EVERY ray
 # in the chunk is finished, so chunk size trades per-launch overhead
-# against tail waste from the slowest ray. Swept on TPU (matpreview /
-# sponza at 256x192): 32768 -> 54.5/20.4s, 8192 -> 30.3s, 1024 ->
-# 24.4/11.3s (best), 512 regresses. Large chunks also trip compiler
-# pathologies.
+# against tail waste from the slowest ray. Not yet measured on the GPU
+# (ROADMAP Design 2).
 RAY_CHUNK = 1024
 
 

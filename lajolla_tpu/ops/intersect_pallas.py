@@ -1,18 +1,19 @@
-"""Pallas TPU kernel: fused brute-force ray-triangle intersection.
+"""Dense closest-hit caster as a Pallas kernel through Triton.
 
-The Woop-transform formulation (see ops/intersect.py) is two K=3
-contractions plus an elementwise resolve; done in plain XLA the (N, 3T)
-intermediates round-trip through HBM (~1 GB per bounce at N=262k). This
-kernel blocks the ray axis, keeps everything in VMEM, and writes only the
-per-ray result — HBM traffic drops to the rays in + hits out.
+One program casts a block of BLOCK_R rays against the whole quad-merged
+cast table (scene/compile.py cast_tri: at most BVH_MIN_TRIS - 1 prims).
+The table is walked in CHUNK-prim steps held in registers, and each
+program keeps a running (t, index, u, v) minimum per ray, so only the
+rays go in and only the per-ray result comes out. The arithmetic is the
+Moller-Trumbore test of ops/intersect.py _cast_setup, in fp32.
 
-Layout: rays live in the MINOR (lane) dimension — all per-triangle
-intermediates are (T, B) with B=512 lanes, so every VPU op runs at full
-width; the triangle axis maps to sublanes. The K=3 contraction is done
-as three broadcasted FMAs (exact fp32, no MXU rounding).
-
-Used for small scenes (T up to a few hundred; larger scenes take the BVH
-path). The whole triangle set lives in VMEM per block.
+The renderer's closest-hit casts take this kernel on the GPU
+(ops/intersect.py vmap rule); on the CPU they take the fused XLA caster
+of ops/intersect.py. Any-hit casts take the fused XLA caster everywhere:
+it rendered faster end to end than a Triton any-hit kernel (PERF.md).
+The kernel is tested in interpret mode on the CPU against the scalar
+oracle (tests/test_casters.py). The block sizes are the fastest of those
+timed on an H100 (PERF.md).
 """
 
 import functools
@@ -20,144 +21,101 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 INF = float('inf')
-BLOCK_B = 4096
+# rays per program, prims per loop step, warps per program: the fastest
+# of (128, 16, 4), (256, 16, 4) and (128, 32, 8) timed on an H100
+# (PERF.md, PR 1)
+BLOCK_R = 128
+CHUNK = 16
+NUM_WARPS = 4
 
 
-def _kernel(o_ref, d_ref, tn_ref, tf_ref, Ax_ref, Ay_ref, Az_ref,
-            qf_ref, t_ref, prim_ref, u_ref, v_ref, *, T: int,
-            want_uv: bool):
-    # o/d: (B, 3) transposed IN-KERNEL to (3, B); tn/tf: (1, B);
-    # A{x,y,z}: (T, 4) rows [a0 a1 a2 bias]; qf: (T, 1) quad flags
-    # (flagged cast prims accept the parallelogram max(u, v) <= 1;
-    # scene/compile.py _merge_parallelograms — the host wrapper remaps
-    # u + v > 1 hits to the partner triangle)
-    o = o_ref[:].T
-    d = d_ref[:].T
-    tnear = tn_ref[:]         # (1, B)
-    tfar = tf_ref[:]
+def _kernel(*refs, n_chunks, chunk):
+    ray_refs, tab_refs, out_refs = refs[:8], refs[8:18], refs[18:]
+    ox, oy, oz, dx, dy, dz, tn, tf = (r[...][:, None] for r in ray_refs)
+    nr = ox.shape[0]
 
-    def contract(A, vec, with_bias):
-        # (T,1)x(1,B) broadcasts: out (T, B)
-        r = (A[:, 0:1] * vec[0:1, :] + A[:, 1:2] * vec[1:2, :] +
-             A[:, 2:3] * vec[2:3, :])
-        if with_bias:
-            r = r + A[:, 3:4]
-        return r
+    def body(c, carry):
+        sl = pl.ds(c * chunk, chunk)
+        (p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z,
+         quad) = (r[sl][None, :] for r in tab_refs)
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        ok = jnp.abs(det) > 1e-12
+        inv_det = jnp.where(ok, 1.0 / det, 0.0)
+        tx, ty, tz = ox - p0x, oy - p0y, oz - p0z
+        u = (tx * px + ty * py + tz * pz) * inv_det
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        v = (dx * qx + dy * qy + dz * qz) * inv_det
+        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+        lim = jnp.where(quad > 0, 1.0 - jnp.maximum(u, v), 1.0 - u - v)
+        hit = (ok & (u >= 0.0) & (v >= 0.0) & (lim >= 0.0) & (t > tn) &
+               (t < tf))
+        tb, ib, ub, vb = carry
+        t = jnp.where(hit, t, INF)
+        tmin = jnp.min(t, axis=1)
+        j = jnp.argmin(t, axis=1).astype(jnp.int32)
+        sel = jax.lax.broadcasted_iota(jnp.int32, t.shape, 1) == j[:, None]
+        uc = jnp.sum(jnp.where(sel, u, 0.0), axis=1)
+        vc = jnp.sum(jnp.where(sel, v, 0.0), axis=1)
+        better = tmin < tb
+        return (jnp.where(better, tmin, tb),
+                jnp.where(better, j + c * chunk, ib),
+                jnp.where(better, uc, ub), jnp.where(better, vc, vb))
 
-    Ax, Ay, Az = Ax_ref[:], Ay_ref[:], Az_ref[:]
-    oz = contract(Az, o, True)
-    dz = contract(Az, d, False)
-    safe_dz = jnp.where(jnp.abs(dz) > 1e-12, dz, 1.0)
-    t = -oz / safe_dz
-    ox = contract(Ax, o, True)
-    dx = contract(Ax, d, False)
-    u = ox + t * dx
-    oy = contract(Ay, o, True)
-    dy = contract(Ay, d, False)
-    v = oy + t * dy
-    # broadcast the f32 flag to full shape BEFORE comparing: Mosaic
-    # rejects selects whose i1 condition is a (T, 1) broadcast
-    # ("unsupported target bitwidth for truncation") — same fix as
-    # integrators/path_kernel.py _hit_mask
-    qfb = jnp.broadcast_to(qf_ref[:], u.shape)
-    lim = jnp.where(qfb > 0.0, 1.0 - jnp.maximum(u, v),
-                    1.0 - u - v)
-    hit = ((jnp.abs(dz) > 1e-12) & (u >= 0.0) & (v >= 0.0) &
-           (lim >= 0.0) & (t > tnear) & (t < tfar))
-    t = jnp.where(hit, t, INF)
-    t_best = jnp.min(t, axis=0)                    # (B,)
-    miss = t_best == INF
-    t_ref[0, :] = jnp.where(miss, INF, t_best)
-    if want_uv:
-        iota = jax.lax.broadcasted_iota(jnp.int32, t.shape, 0)
-        i = jnp.argmin(t, axis=0)
-        sel = iota == i[None, :]
-        prim_ref[0, :] = jnp.where(miss, -1, i).astype(jnp.int32)
-        u_ref[0, :] = jnp.sum(jnp.where(sel, u, 0.0), axis=0)
-        v_ref[0, :] = jnp.sum(jnp.where(sel, v, 0.0), axis=0)
-    else:
-        prim_ref[0, :] = jnp.where(miss, -1, 0).astype(jnp.int32)
-        u_ref[0, :] = jnp.zeros_like(t_best)
-        v_ref[0, :] = jnp.zeros_like(t_best)
+    init = (jnp.full((nr,), INF, jnp.float32), jnp.full((nr,), -1, jnp.int32),
+            jnp.zeros((nr,), jnp.float32), jnp.zeros((nr,), jnp.float32))
+    for ref, val in zip(out_refs, jax.lax.fori_loop(0, n_chunks, body, init)):
+        ref[...] = val
 
 
-def _call(scene, o, d, tnear, tfar, want_uv, occ_only=False):
-    N = o.shape[0]
-    pad = (-N) % BLOCK_B
-    if pad:
-        o = jnp.pad(o, ((0, pad), (0, 0)))
-        d = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-        tnear = jnp.pad(tnear, (0, pad))
-        tfar = jnp.pad(tfar, (0, pad))
-    Np = N + pad
-    tn2 = tnear[None, :]
-    tf2 = tfar[None, :]
-    # per-axis (T, 4) transform rows [a0 a1 a2 bias]. occ_only: the
-    # occluder subset (convex-envelope tris can never block a shadow
-    # segment — scene/compile.py) — prim ids then index the SUBSET and
-    # are only valid as a hit/miss boolean.
-    A = scene.tri_woop_A_occ if occ_only else scene.tri_woop_A
-    b = scene.tri_woop_b_occ if occ_only else scene.tri_woop_b
-    qf = scene.cast_occ_quad if occ_only else scene.cast_quad
-    T = A.shape[1] // 3
-    Ax = jnp.concatenate([A[:, :T].T, b[:T, None]], axis=1)
-    Ay = jnp.concatenate([A[:, T:2 * T].T, b[T:2 * T, None]], axis=1)
-    Az = jnp.concatenate([A[:, 2 * T:].T, b[2 * T:, None]], axis=1)
-
-    grid = (Np // BLOCK_B,)
-    kern = functools.partial(_kernel, T=T, want_uv=want_uv)
-    full = lambda i: (0, 0)
-    blk = lambda i: (0, i)
-    t, prim, u, v = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((BLOCK_B, 3), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BLOCK_B, 3), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BLOCK_B), blk, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BLOCK_B), blk, memory_space=pltpu.VMEM),
-            pl.BlockSpec((T, 4), full, memory_space=pltpu.VMEM),
-            pl.BlockSpec((T, 4), full, memory_space=pltpu.VMEM),
-            pl.BlockSpec((T, 4), full, memory_space=pltpu.VMEM),
-            pl.BlockSpec((T, 1), full, memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, BLOCK_B), blk, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BLOCK_B), blk, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BLOCK_B), blk, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BLOCK_B), blk, memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, Np), jnp.float32),
-            jax.ShapeDtypeStruct((1, Np), jnp.int32),
-            jax.ShapeDtypeStruct((1, Np), jnp.float32),
-            jax.ShapeDtypeStruct((1, Np), jnp.float32),
-        ],
-    )(o, d, tn2, tf2, Ax, Ay, Az, qf[:, None])
-    return (t[0, :N], prim[0, :N], u[0, :N], v[0, :N])
+@functools.partial(jax.jit, static_argnames=('block_r', 'interpret'))
+def _cast(tab, quad, o, d, tnear, tfar, *, block_r, interpret):
+    n = o.shape[0]
+    npad = -(-n // block_r) * block_r
+    T = tab.shape[1]
+    tpad = -(-T // CHUNK) * CHUNK
+    # padded rays get an empty (0, 0) window; padded prims have det = 0
+    rays = [jnp.pad(x, (0, npad - n)) for x in
+            (*o.T, *d.T, jnp.broadcast_to(tnear, (n,)),
+             jnp.broadcast_to(tfar, (n,)))]
+    rows = [jnp.pad(x, (0, tpad - T)) for x in (*tab, quad)]
+    ray_spec = pl.BlockSpec((block_r,), lambda i: (i,))
+    tab_spec = pl.BlockSpec((tpad,), lambda i: (0,))
+    out_shape = [jax.ShapeDtypeStruct((npad,), dt) for dt in
+                 (jnp.float32, jnp.int32, jnp.float32, jnp.float32)]
+    outs = pl.pallas_call(
+        functools.partial(_kernel, n_chunks=tpad // CHUNK, chunk=CHUNK),
+        out_shape=out_shape,
+        grid=(npad // block_r,),
+        in_specs=[ray_spec] * 8 + [tab_spec] * 10,
+        out_specs=[ray_spec] * len(out_shape),
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
+        interpret=interpret,
+        backend="triton",
+        name='cast_closest',
+    )(*rays, *rows)
+    return [x[:n] for x in outs]
 
 
-def intersect_brute_pallas(scene, o, d, tnear, tfar):
-    """o, d: (N,3); tnear/tfar: (N,). Returns (t, prim, u, v) each (N,)
-    — prim in TRUE triangle ids (quad cast hits with u + v > 1 remap to
-    the partner triangle, barycentrics included)."""
-    t, ci, u, v = _call(scene, o, d, tnear, tfar, want_uv=True)
-    c = jnp.maximum(ci, 0)
-    back = (scene.cast_quad[c] > 0) & (u + v > 1.0)
-    prim = jnp.where(back, scene.cast_alt[c], scene.cast_src[c])
-    prim = jnp.where(ci < 0, -1, prim).astype(jnp.int32)
-    ur = jnp.where(back, 1.0 - v, u)
-    vr = jnp.where(back, u + v - 1.0, v)
-    return t, prim, ur, vr
+def _intersect(scene, o, d, tnear, tfar, *, block_r, interpret):
+    from lajolla_tpu.ops.intersect import resolve_cast_hit
+    t, ci, u, v = _cast(scene.cast_tri, scene.cast_quad, o, d,
+                        jnp.asarray(tnear, jnp.float32),
+                        jnp.asarray(tfar, jnp.float32), block_r=block_r,
+                        interpret=interpret)
+    return resolve_cast_hit(scene, o, d, t, ci, u, v)
 
 
-def occluded_brute_pallas(scene, o, d, tnear, tfar):
-    """Any-hit variant: returns bool (N,)."""
-    t, _, _, _ = _call(scene, o, d, tnear, tfar, want_uv=False,
-                       occ_only=True)
-    return t < INF
+def intersect_brute_triton(scene, o, d, tnear, tfar):
+    """Closest hit of N rays, o, d: (N, 3); tnear/tfar: (N,) or scalar.
+    Returns (t, prim, u, v), each (N,), prim in TRUE triangle ids."""
+    return _intersect(scene, o, d, tnear, tfar, block_r=BLOCK_R,
+                      interpret=False)

@@ -1,15 +1,17 @@
-"""Multi-chip rendering: sample-axis data parallelism over a device mesh.
+"""Multi-device rendering: sample-axis data parallelism over a device mesh.
 
 The reference's entire distribution story is a work-stealing thread pool
-over 16x16 film tiles (src/parallel.cpp, render.cpp:75-99). The TPU-native
-equivalent (SURVEY §2.7): ONE SPMD program — `shard_map` over a
-`jax.sharding.Mesh`, sharding the *sample* axis (each chip renders the
-full image with a disjoint slice of the per-pixel sample indices,
-decorrelated by RNG key folding), scene arrays replicated (read-only),
-film reduced with a single `psum` over ICI. Multi-host = the same program
-over a bigger mesh; no new code path.
+over 16x16 film tiles (src/parallel.cpp, render.cpp:75-99). The
+equivalent here (SURVEY §2.7): ONE SPMD program — `shard_map` over a 1-D
+`('samples',)` `jax.sharding.Mesh`, sharding the *sample* axis (each
+device renders the full image with a disjoint slice of the per-pixel
+sample indices; the counter-hash RNG keys each path on (seed, item,
+bounce), so the union of the slices is exactly the single-device
+render's work), scene arrays replicated (read-only), film reduced with a
+single `psum` (an NCCL all-reduce on GPUs, which reach each other all to
+all). Multi-host = the same program over a bigger mesh; no new code path.
 
-Pixel-axis sharding would equally work; sample-axis keeps every chip's
+Pixel-axis sharding would equally work; sample-axis keeps every device's
 control flow identical (no tile shape remainders) and needs zero scene
 re-layout.
 """
@@ -175,8 +177,8 @@ def render_diff_sharded(scene, options, seed=0, mesh=None, depth=6):
     """Distributed DIFFERENTIABLE render (integrators/diffpath.py) —
     sample-axis data parallelism like render_path_sharded, and
     `jax.grad` flows straight through the shard_map + pmean: the film
-    gradient wrt replicated scene parameters is all-reduced over ICI by
-    the transpose automatically. Per-chip sample indices reproduce the
+    gradient wrt replicated scene parameters is all-reduced over the mesh
+    by the transpose automatically. Per-chip sample indices reproduce the
     single-chip RNG streams exactly (render_diff's s0), so the sharded
     primal AND gradients match a single-device render at equal total
     spp (tests/test_diffpath.py::test_sharded_gradients_match)."""

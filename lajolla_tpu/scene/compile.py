@@ -16,25 +16,16 @@ from lajolla_tpu.ops.bvh import build_bvh
 from lajolla_tpu.scene import types as T
 from lajolla_tpu.scene.types import Scene, SceneMeta
 
-# Below this many triangles, brute force beats BVH gather overhead on TPU.
+# Below this many triangles the dense brute-force casters serve the
+# scene; at or above it the binned two-level caster does. The value is
+# not yet measured on the GPU (ROADMAP Design 2 keeps it as an A/B item).
 BVH_MIN_TRIS = 192
 
 # Supervoxel majorant cells cover ~this many fine voxels per axis: the
 # optimum balances DDA crossing count against majorant tightness
-# (swept on hetvol: 8 is ~25% over 4; 16 is within noise of 8 — mean
-# delta-tracking rounds 9.36 vs ~9.3). Because 16 costs nothing in
-# rounds, compile_scene doubles the divisor up to SVOX_DIVISOR_MAX when
-# that brings the TOTAL supervoxel row count under the one-hot MXU
-# gather bound (ops/gather.py ONEHOT_LIMIT): the per-lane svox lookup in
-# volpath._majorant_segment runs every tracking iteration, and a ~10
-# ns/lane dynamic gather there becomes a cheap (B,rows)x(rows,4) matmul.
+# (counted on hetvol: mean delta-tracking rounds at 8 are ~25% below 4;
+# 16 is within noise of 8).
 SVOX_DIVISOR = 8
-SVOX_DIVISOR_MAX = 16
-
-# A/B knob for the parallelogram cast-merge (r4 change, suspected in
-# the cbox 46->39 / veach 57->32 regressions — VERDICT r4 #4). False =
-# cast tables carry raw triangles exactly like r3.
-MERGE_QUADS = True
 
 
 def fov_to_fov_x(fov, fov_axis, width, height):
@@ -76,8 +67,8 @@ def _merge_parallelograms(vertices, indices, num_tris):
     consumed = np.zeros(max(num_tris, 1), bool)
     # only the dense brute-family casters consume the cast tables, and
     # they only serve small scenes (use_binned scenes go through the
-    # cluster sweep) — skip the host-side edge walk for big meshes
-    if not MERGE_QUADS or num_tris < 2 or num_tris > 4096:
+    # binned caster) — skip the host-side edge walk for big meshes
+    if num_tris < 2 or num_tris > 4096:
         return alt, consumed
     P = vertices
     p0 = P[indices[:, 0]]
@@ -181,9 +172,9 @@ def compile_scene(b):
     # Triangle pairs that tile an exact parallelogram become ONE cast
     # primitive for the dense casters: rep triangle A is rotated to
     # (p0 off-diagonal | p1, p2 diagonal), partner B is reordered to
-    # (p2, p1, p3) with p3 = p1 + p2 - p0. A's Woop transform then covers
-    # the whole parallelogram with acceptance max(u, v) <= 1, and a hit
-    # with u + v > 1 maps EXACTLY to B's barycentrics (1 - v, u + v - 1).
+    # (p2, p1, p3) with p3 = p1 + p2 - p0. A's Moller-Trumbore test then
+    # covers the whole parallelogram with acceptance max(u, v) <= 1, and
+    # a hit with u + v > 1 lies in B (ops/intersect.py resolve_cast_hit).
     # Halves dense tri-tests on quad-built meshes (cbox walls/boxes,
     # veach plates). Reorders are parity-preserving (A: cyclic rotation;
     # B: checked same-normal), so geometric normals, one-sided emission
@@ -271,38 +262,14 @@ def compile_scene(b):
         tri_stair = np.zeros(max(num_tris, 1))
         tri_alias = np.zeros((max(num_tris, 1), 2), np.float32)
 
-    # ------------------------------------------------ Woop transforms (MXU)
-    # Per-triangle affine map into unit-triangle space: x' = W x + b with
-    # W = [e1 e2 n]^-1, b = -W p0. Ray-triangle intersection then becomes
-    # two (N,3)x(3,3T) matmuls — MXU work instead of VPU gathers. Used by
-    # the brute-force intersector for small scenes.
-    nt_ = max(num_tris, 1)
-    woop_A = np.zeros((3, 3 * nt_), np.float32)
-    woop_b = np.zeros(3 * nt_, np.float32)
-    if num_tris > 0:
-        n_vec = np.cross(e1, e2)
-        M = np.stack([e1, e2, n_vec], axis=-1)  # (T,3,3) columns e1,e2,n
-        dets = np.linalg.det(M)
-        ok = np.abs(dets) > 1e-18
-        Minv = np.zeros_like(M)
-        Minv[ok] = np.linalg.inv(M[ok])
-        b_vec = -np.einsum('tij,tj->ti', Minv, p0)
-        # layout: columns grouped by output row: [x-rows | y-rows | z-rows]
-        woop_A = np.concatenate([Minv[:, 0, :].T, Minv[:, 1, :].T,
-                                 Minv[:, 2, :].T], axis=1).astype(np.float32)
-        woop_b = np.concatenate([b_vec[:, 0], b_vec[:, 1],
-                                 b_vec[:, 2]]).astype(np.float32)
-        # degenerate triangles: zero transform → d'_z = 0 → no hit
-        woop_A[:, np.tile(~ok, 3)] = 0.0
-        woop_b[np.tile(~ok, 3)] = 0.0
-
-    # cast-space (quad-merged) tables for the dense casters: the Woop
-    # rows of the rep triangles; a cast prim with cast_alt != cast_src
-    # accepts max(u, v) <= 1 (the full parallelogram) and remaps
-    # u + v > 1 hits to the partner triangle
-    ccol = np.concatenate([cast_src, cast_src + nt_, cast_src + 2 * nt_])
-    cast_woop_A = woop_A[:, ccol]
-    cast_woop_b = woop_b[ccol]
+    # ------------------------------------------- cast tables (dense casters)
+    # Moller-Trumbore rows [p0 | e1 | e2] of each cast prim's rep
+    # triangle, one prim per column. A cast prim with cast_alt !=
+    # cast_src accepts max(u, v) <= 1 (the full parallelogram) and remaps
+    # u + v > 1 hits to the partner triangle. Degenerate triangles have
+    # det = 0 and never hit.
+    cast_tri = np.concatenate([p0, e1, e2], axis=1)[cast_src].T.astype(
+        np.float32)
     cast_quad = (cast_alt != cast_src).astype(np.float32)
 
     # ------------------------------------------------------------------ bounds
@@ -332,29 +299,19 @@ def compile_scene(b):
                    prim=np.arange(max(num_tris, 1), dtype=np.int32),
                    n_nodes=1)
 
-    # binned two-level intersector (the TPU-native path for big scenes)
+    # binned two-level intersector (big scenes)
     use_binned = use_bvh
     if use_binned:
         from lajolla_tpu.ops.intersect_binned import build_clusters
-        from lajolla_tpu.ops.intersect_sweep import pack_sweep
-        # C=128 clusters: one full lane-register row per cluster in
-        # the resident lane-major sweep kernel (C must be a multiple
-        # of 128 for its static lane slices)
         cl = build_clusters(bvh, p0.astype(np.float32),
                             e1.astype(np.float32), e2.astype(np.float32),
                             max_tris=128)
-        sw = pack_sweep(cl)
     else:
         cl = dict(cl_lo=np.zeros((1, 3), np.float32),
                   cl_hi=np.zeros((1, 3), np.float32),
                   cl_A=np.zeros((1, 3, 3), np.float32),
                   cl_b=np.zeros((1, 3), np.float32),
                   cl_prim=np.full((1, 1), -1, np.int32))
-        sw = dict(sw_A=np.zeros((1, 12), np.float32),
-                  sw_prim=np.full((1, 1), -1.0, np.float32),
-                  sw_lane=np.zeros((1, 16, 1), np.float32),
-                  sw_aabb=np.zeros((1, 8), np.float32),
-                  sw_saabb=np.zeros((1, 8), np.float32))
 
     # merged BVH tables: ONE wide gather per node visit / leaf triangle
     nb = bvh['lo'].shape[0]
@@ -475,9 +432,8 @@ def compile_scene(b):
         med_density_vol[i] = m.density_vol
 
     # one wide row per medium (scene/soa.py pattern): the volpath inner
-    # loops read medium properties per lane per iteration — narrow
-    # gathers there cost ~10 ns/lane each (~13 sites/bounce measured
-    # 2/3 of vol_cbox wall time); one one-hot MXU fetch replaces them.
+    # loops read medium properties per lane per iteration, and one row
+    # fetch replaces ~13 narrow gathers per bounce.
     # layout: [type, phase, g, dvol, avol, sa3, ss3, maxval3, pad2]
 
     def _super_majorants(g, gres):
@@ -549,30 +505,10 @@ def compile_scene(b):
 
     def _svox_gres(shape_zyx, div):
         """Supervoxel grid resolution for a (z, y, x) density grid at
-        `div` cells per supervoxel. Single source of truth: used both by
-        the divisor search below and the actual grid build, so the row
-        prediction can never diverge from the svox_data that is built
-        (a divergence would silently push fast_gather off the one-hot
-        MXU path in the hottest tracking loop)."""
+        `div` cells per supervoxel."""
         z, y, x = shape_zyx
         return tuple(int(np.clip((r - 1 + div - 1) // div, 1, 32))
                      for r in (x, y, z))
-
-    def _svox_rows_at(div):
-        return sum(int(np.prod(_svox_gres(v.grid.shape[:3], div)))
-                   for v in b.volumes if v.kind == T.VOL_GRID)
-
-    # smallest divisor (>= SVOX_DIVISOR, <= SVOX_DIVISOR_MAX) whose total
-    # supervoxel row count fits the one-hot MXU gather bound; plain
-    # SVOX_DIVISOR when even the max divisor doesn't fit (the gather
-    # path costs the same at any size, so tighter majorants win then).
-    from lajolla_tpu.ops.gather import ONEHOT_LIMIT
-    svox_div = SVOX_DIVISOR
-    while (_svox_rows_at(svox_div) > ONEHOT_LIMIT and
-           svox_div < SVOX_DIVISOR_MAX):
-        svox_div *= 2
-    if _svox_rows_at(svox_div) > ONEHOT_LIMIT:
-        svox_div = SVOX_DIVISOR
 
     nv = max(len(b.volumes), 1)
     vol_kind = np.zeros(nv, np.int32)
@@ -622,7 +558,7 @@ def compile_scene(b):
             ], axis=-1)
             vchunks.append(oct_.reshape(-1, 24))
             voff += x * y * z
-            gres = _svox_gres(g.shape[:3], svox_div)
+            gres = _svox_gres(g.shape[:3], SVOX_DIVISOR)
             sv, sv_lo = _super_majorants(g, gres)
             sv = sv * v.scale
             sv_lo = sv_lo * v.scale
@@ -643,34 +579,6 @@ def compile_scene(b):
                    else np.zeros((1, 24))).astype(np.float32)
     svox_data = (np.concatenate(schunks) if schunks
                  else np.zeros((1, 8))).astype(np.float32)
-
-    # ---- fused grid-media kernel feasibility + its density table ------
-    # (integrators/volpath_grid_kernel.py): ONE heterogeneous medium
-    # whose density grid is monochrome and albedo constant — the kernel
-    # then tracks a scalar sigma_t field, resolves trilinear lookups by
-    # MXU matmul-gather over a (X, Z*Y) table, and one-hot-gathers the
-    # supervoxel majorants (needs svox rows within the one-hot bound).
-    fp_grid = np.zeros((1, 1), np.float32)
-    grid_kernel_ok = False
-    if nmed == 1 and med_type[0] == T.MED_HETEROGENEOUS:
-        dvi = int(med_density_vol[0])
-        avi = int(med_albedo_vol[0])
-        dv_ = b.volumes[dvi] if 0 <= dvi < len(b.volumes) else None
-        av_ = b.volumes[avi] if 0 <= avi < len(b.volumes) else None
-        if (dv_ is not None and dv_.kind == T.VOL_GRID and
-                av_ is not None and av_.kind != T.VOL_GRID):
-            g = dv_.grid                                   # (Z,Y,X,3)
-            z_, y_, x_ = g.shape[:3]
-            mono = bool((g[..., 0] == g[..., 1]).all() and
-                        (g[..., 0] == g[..., 2]).all())
-            srows = int(np.prod(svox_res[dvi]))
-            if mono and srows <= 512 and z_ * y_ * x_ <= (1 << 20):
-                # (Z*Y, X): the kernel's x-interpolation contraction is
-                # then dot(grid, Wx) with rays in the lane dim — no
-                # transposes anywhere (see volpath_grid_kernel._density)
-                fp_grid = np.ascontiguousarray(
-                    (g[..., 0] * dv_.scale).reshape(z_ * y_, x_))
-                grid_kernel_ok = True
 
     # layout documented in media.py (MT_*/VL_* constants)
     med_tab = np.zeros((nmed, 46), np.float32)
@@ -742,106 +650,18 @@ def compile_scene(b):
     tex_tab[:, 8:10] = tex_uvscale
     tex_tab[:, 10:12] = tex_uvoffset
 
-    # ------------------------------------------ megakernel fast-path tables
-    # (integrators/path_kernel.py); packed whenever the config qualifies.
-    # Constant-texture material parameters are baked per primitive so the
-    # kernel never touches the texture system.
-    def _mat_fp(mat_ids):
-        """(mat_type, kd, ks, roughness, eta) per entry of mat_ids."""
-        m = np.maximum(mat_ids, 0)
-        return (mat_type[m], tex_const[mat_tex[m, 0]],
-                tex_const[mat_tex[m, 1]], tex_const[mat_tex[m, 2], 0],
-                mat_eta[m])
-
-    nt_fp = max(num_tris, 1)
-    fp_woop = np.zeros((nt_fp, 12), np.float32)
-    fp_tri = np.zeros((40, nt_fp), np.float32)
-    fp_light = np.zeros((16, max(nl, 1)), np.float32)
-    ns_fp = max(len(spheres), 1)
-    fp_sph = np.zeros((ns_fp, 24), np.float32)
-    if num_tris > 0:
-        Tn = num_tris
-        fp_woop[:, 0:3] = woop_A[:, :Tn].T
-        fp_woop[:, 3] = woop_b[:Tn]
-        fp_woop[:, 4:7] = woop_A[:, Tn:2 * Tn].T
-        fp_woop[:, 7] = woop_b[Tn:2 * Tn]
-        fp_woop[:, 8:11] = woop_A[:, 2 * Tn:].T
-        fp_woop[:, 11] = woop_b[2 * Tn:]
-        # quad-merged cast rows for the fused kernels (same cast list
-        # and order as the generic brute tables above)
-        fp_woop = fp_woop[cast_src]
-        fp_tri[0:3] = p0.T
-        fp_tri[3:6] = e1.T
-        fp_tri[6:9] = e2.T
-        fp_tri[9:12] = normals[indices[:, 0]].T
-        fp_tri[12:15] = normals[indices[:, 1]].T
-        fp_tri[15:18] = normals[indices[:, 2]].T
-        fp_tri[18] = shape_has_n[tri_shape]
-        t_light = shape_light[tri_shape]
-        fp_tri[19] = t_light
-        t_mt, t_kd, t_ks, t_rough, t_eta = _mat_fp(shape_material[tri_shape])
-        fp_tri[20:23] = t_kd.T
-        lt_c = np.maximum(t_light, 0)
-        is_l = (t_light >= 0).astype(np.float32)
-        fp_tri[23:26] = (light_intensity[lt_c] * is_l[:, None]).T
-        fp_tri[26] = 1.0 / np.maximum(shape_area[tri_shape], 1e-20)
-        fp_tri[27] = light_pmf[lt_c] * is_l
-        fp_tri[28] = t_mt
-        fp_tri[29:32] = t_ks.T
-        fp_tri[32] = t_rough
-        fp_tri[33] = t_eta
-        # index-matching interfaces + medium transitions for the fused
-        # grid-media kernel (vol_path_tracing.h:149-163, :716-726):
-        # mat_ok == 0 marks a pass-through shape (material_id == -1)
-        fp_tri[34] = (shape_material[tri_shape] >= 0).astype(np.float32)
-        fp_tri[35] = shape_int_med[tri_shape]
-        fp_tri[36] = shape_ext_med[tri_shape]
-    if num_tris > 0 or spheres:
-        fp_light[0] = light_cdf
-        fp_light[1] = light_pmf
-        fp_light[2:5] = light_intensity.T
-        l_shape_c = np.maximum(light_shape, 0)
-        fp_light[5] = 1.0 / np.maximum(shape_area[l_shape_c], 1e-20)
-        fp_light[6] = light_shape
-        l_is_sph = (shape_type[l_shape_c] == T.SHAPE_SPHERE)
-        fp_light[7] = l_is_sph
-        l_sph = np.maximum(shape_prim_start[l_shape_c], 0)
-        l_sph = np.minimum(l_sph, ns_fp - 1)
-        fp_light[8:11] = (sph_center[l_sph] * l_is_sph[:, None]).T
-        fp_light[11] = sph_radius[l_sph] * l_is_sph
-    if spheres:
-        fp_sph[:, 0:3] = sph_center
-        fp_sph[:, 3] = sph_radius
-        s_light = shape_light[sph_shape]
-        fp_sph[:, 4] = s_light
-        s_mt, s_kd, s_ks, s_rough, s_eta = _mat_fp(
-            shape_material[sph_shape])
-        fp_sph[:, 5] = s_mt
-        fp_sph[:, 6:9] = s_kd
-        fp_sph[:, 9:12] = s_ks
-        fp_sph[:, 12] = s_rough
-        fp_sph[:, 13] = s_eta
-        sl_c = np.maximum(s_light, 0)
-        s_is_l = (s_light >= 0).astype(np.float32)
-        fp_sph[:, 14] = light_pmf[sl_c] * s_is_l
-        fp_sph[:, 15:18] = light_intensity[sl_c] * s_is_l[:, None]
-        fp_sph[:, 18] = (shape_material[sph_shape] >= 0).astype(np.float32)
-        fp_sph[:, 19] = shape_int_med[sph_shape]
-        fp_sph[:, 20] = shape_ext_med[sph_shape]
-
-    # ------------------------------------------ occluder subset (fast path)
+    # ------------------------------------------------------ occluder subset
     # A triangle on the scene's convex envelope — ALL geometry on one side
     # of its plane — can never intersect a shadow segment whose endpoints
     # both lie on/inside the hull, which is every area/sphere-light NEE
     # ray (path_tracing.h:119-131: surface point → light point). Envmap
-    # shadow rays extend to infinity, so envmap scenes keep the full set
-    # (the fast-path kernels exclude envmaps anyway). Media scenes also
+    # shadow rays extend to infinity, so envmap scenes keep the full set.
+    # Media scenes also
     # keep the full set: volumetric NEE rays originate at scatter points
     # that can lie OUTSIDE the geometry hull (e.g. camera-in-medium
     # vol_cbox), where envelope walls genuinely occlude
-    # (vol_path_tracing.h:335-439). cbox: the 5 room walls (10 of 32
-    # tris) drop out of every occlusion sweep.
-    fp_woop_occ = fp_woop
+    # (vol_path_tracing.h:335-439). cbox: the room walls and the block
+    # bottoms (16 of 38 tris) drop out of every occlusion cast.
     cast_occ_quad = cast_quad
     if 0 < num_tris <= 4096 and not (b.envmap_light_id >= 0) \
             and not b.media:
@@ -867,21 +687,13 @@ def compile_scene(b):
         # envelope argument applies per member triangle)
         occ_c = occ[cast_src] | occ[cast_alt]
         if occ_c.any():
-            Tc = cast_src.shape[0]
-            col = np.concatenate([np.nonzero(occ_c)[0],
-                                  np.nonzero(occ_c)[0] + Tc,
-                                  np.nonzero(occ_c)[0] + 2 * Tc])
-            woop_A_occ = cast_woop_A[:, col]
-            woop_b_occ = cast_woop_b[col]
-            fp_woop_occ = fp_woop[occ_c]
+            cast_tri_occ = cast_tri[:, occ_c]
             cast_occ_quad = cast_quad[occ_c]
         else:
-            woop_A_occ = np.zeros((3, 3), np.float32)
-            woop_b_occ = np.zeros(3, np.float32)
-            fp_woop_occ = np.zeros((1, 12), np.float32)
+            cast_tri_occ = np.zeros((9, 1), np.float32)
             cast_occ_quad = np.zeros(1, np.float32)
     else:
-        woop_A_occ, woop_b_occ = cast_woop_A, cast_woop_b
+        cast_tri_occ = cast_tri
 
     # ------------------------------------------------------------------ camera
     cam = b.camera
@@ -946,21 +758,13 @@ def compile_scene(b):
             (T.MED_HETEROGENEOUS in med_present and
              svox_data[:, 4:7].max() > 1e-4 * max(svox_data[:, :3].max(),
                                                   1e-20))),
-        grid_kernel_ok=grid_kernel_ok,
-        uniform_medium=bool(
-            len(b.media) == 1 and med_present == (T.MED_HOMOGENEOUS,) and
-            cam.medium_id == 0 and len(b.shapes) > 0 and
-            (shape_ext_med[:len(b.shapes)] == 0).all() and
-            (shape_int_med[:len(b.shapes)] == -1).all() and
-            (shape_material[:len(b.shapes)] >= 0).all()),
     )
 
     return Scene(
         vertices=_f32(vertices), normals=_f32(normals), uvs=_f32(uv_arr),
         indices=_i32(indices), tri_shape=_i32(tri_shape),
         tri_p0=_f32(p0), tri_e1=_f32(e1), tri_e2=_f32(e2),
-        tri_woop_A=_f32(cast_woop_A), tri_woop_b=_f32(cast_woop_b),
-        tri_woop_A_occ=_f32(woop_A_occ), tri_woop_b_occ=_f32(woop_b_occ),
+        cast_tri=_f32(cast_tri), cast_tri_occ=_f32(cast_tri_occ),
         cast_src=_i32(cast_src), cast_alt=_i32(cast_alt),
         cast_quad=_f32(cast_quad), cast_occ_quad=_f32(cast_occ_quad),
         sph_center=_f32(sph_center), sph_radius=_f32(sph_radius),
@@ -972,12 +776,6 @@ def compile_scene(b):
         cl_lo=_f32(cl['cl_lo']), cl_hi=_f32(cl['cl_hi']),
         cl_A=_f32(cl['cl_A']), cl_b=_f32(cl['cl_b']),
         cl_prim=_i32(cl['cl_prim']),
-        sw_A=_f32(sw['sw_A']), sw_prim=_f32(sw['sw_prim']),
-        sw_lane=_f32(sw['sw_lane']),
-        sw_aabb=_f32(sw['sw_aabb']), sw_saabb=_f32(sw['sw_saabb']),
-        fp_woop=_f32(fp_woop), fp_woop_occ=_f32(fp_woop_occ),
-        fp_tri=_f32(fp_tri), fp_light=_f32(fp_light),
-        fp_sph=_f32(fp_sph),
         shape_material_id=_i32(shape_material), shape_light_id=_i32(shape_light),
         shape_interior_med=_i32(shape_int_med),
         shape_exterior_med=_i32(shape_ext_med),
@@ -1009,7 +807,7 @@ def compile_scene(b):
         vol_pmin=_f32(vol_pmin), vol_pmax=_f32(vol_pmax),
         vol_maxval=_f32(vol_maxval), volume_data=_f32(volume_data),
         svox_offset=_i32(svox_offset), svox_res=_i32(svox_res),
-        svox_data=_f32(svox_data), fp_grid=_f32(fp_grid),
+        svox_data=_f32(svox_data),
         med_tab=_f32(med_tab),
         tri_shade=_f32(tri_shade), shape_tab=_f32(shape_tab),
         light_tab=_f32(light_tab), mat_tab=_f32(mat_tab),

@@ -43,9 +43,10 @@ class Hit(NamedTuple):
 
 def intersect_triangles(scene, o, d, tnear, tfar):
     # brute_force_triangles is a custom_vmap op whose batched rule picks
-    # the right backend: binned two-level (big scenes), Pallas Woop
-    # (small scenes on TPU), or plain XLA. The per-lane BVH traversal
-    # remains available as an oracle/fallback.
+    # the caster: binned two-level (big scenes), the Pallas/Triton dense
+    # kernel (small scenes on the GPU), or the fused XLA dense caster
+    # (small scenes elsewhere). The per-lane BVH traversal remains
+    # available as an oracle.
     if scene.meta.use_bvh and not scene.meta.use_binned:
         return bvh_traverse(scene, o, d, tnear, tfar)
     return brute_force_triangles(scene, o, d, tnear, tfar)

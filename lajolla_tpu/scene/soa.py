@@ -3,8 +3,7 @@
 The scene compiler denormalizes the hot per-hit lookups into merged
 wide-row tables (tri_shade, shape_tab, light_tab, mat_tab, tex_tab) so
 each shading step does ONE row fetch per record type instead of a dozen
-narrow gathers. These helpers fetch a row (via ops.gather.fast_gather)
-and name its columns. Scalar-style (callers vmap); exact fp32.
+narrow gathers. These helpers fetch a row and name its columns. Scalar-style (callers vmap); exact fp32.
 
 Integer ids are stored as float32 in these tables — all ids are far
 below 2^24 so the encoding is exact.
@@ -14,7 +13,13 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-from lajolla_tpu.ops.gather import fast_gather
+
+def fetch_row(table, idx):
+    """table[idx] along axis 0, as one gather. An id outside the table
+    (-1 marks "none") reads a row of zeros instead of wrapping."""
+    return table.at[idx].get(mode='fill', fill_value=0,
+                             wrap_negative_indices=False)
+
 
 
 class TriShade(NamedTuple):
@@ -34,7 +39,7 @@ TRI_SHADE_DIM = 25  # 3*3 pos + 3*3 normals + 3*2 uv + shape_id
 
 
 def fetch_tri(scene, prim):
-    row = fast_gather(scene.tri_shade, prim)
+    row = fetch_row(scene.tri_shade, prim)
     return TriShade(
         p0=row[0:3], e1=row[3:6], e2=row[6:9],
         n0=row[9:12], n1=row[12:15], n2=row[15:18],
@@ -59,7 +64,7 @@ SHAPE_TAB_DIM = 9
 
 
 def fetch_shape(scene, shape_id):
-    row = fast_gather(scene.shape_tab, shape_id)
+    row = fetch_row(scene.shape_tab, shape_id)
     i = lambda c: row[c].astype(jnp.int32)
     return ShapeRec(material_id=i(0), light_id=i(1), interior_med=i(2),
                     exterior_med=i(3), type=i(4), prim_start=i(5),
@@ -78,7 +83,7 @@ LIGHT_TAB_DIM = 6
 
 
 def fetch_light(scene, light_id):
-    row = fast_gather(scene.light_tab, light_id)
+    row = fetch_row(scene.light_tab, light_id)
     return LightRec(type=row[0].astype(jnp.int32),
                     shape_id=row[1].astype(jnp.int32),
                     intensity=row[2:5], pmf=row[5])
@@ -94,7 +99,7 @@ MAT_TAB_DIM = 15  # type, eta, 13 slots
 
 
 def fetch_mat(scene, mat_id):
-    row = fast_gather(scene.mat_tab, mat_id)
+    row = fetch_row(scene.mat_tab, mat_id)
     return MatRec(type=row[0].astype(jnp.int32), eta=row[1],
                   tex=row[2:15].astype(jnp.int32))
 
@@ -112,7 +117,7 @@ TEX_TAB_DIM = 12
 
 
 def fetch_tex(scene, tex_id):
-    row = fast_gather(scene.tex_tab, jnp.maximum(tex_id, 0))
+    row = fetch_row(scene.tex_tab, jnp.maximum(tex_id, 0))
     return TexRec(kind=row[0].astype(jnp.int32),
                   image_id=row[1].astype(jnp.int32),
                   const=row[2:5], color1=row[5:8],

@@ -8,24 +8,19 @@ the quad-packed texdata array (scene/texture.py). Per-ray scalar style; callers 
 
 import jax.numpy as jnp
 
-from lajolla_tpu.scene.soa import fetch_tex
-from lajolla_tpu.scene.types import TEX_CONSTANT, TEX_IMAGE, TEX_CHECKERBOARD, MAX_MIP_LEVELS
-
-_LVL_IOTA = None
-
+from lajolla_tpu.scene.soa import fetch_row, fetch_tex
+from lajolla_tpu.scene.types import TEX_CONSTANT, TEX_IMAGE, TEX_CHECKERBOARD
 
 def _mip_row(scene, img_id):
     """(25,) wide mip-metadata row [off x8 | w x8 | h x8 | nlev] — one
-    one-hot fetch replaces ~9 narrow per-lane gathers per texture eval
+    row fetch replaces ~9 narrow per-lane gathers per texture eval
     (offsets are exact in f32 up to 16.7M quad rows)."""
-    from lajolla_tpu.ops.gather import fast_gather
-    return fast_gather(scene.mip_tab, jnp.maximum(img_id, 0))
+    return fetch_row(scene.mip_tab, jnp.maximum(img_id, 0))
 
 
 def _lvl(row, base, level):
-    """row[base + level] via a dense 8-wide one-hot (no gather)."""
-    oh = (jnp.arange(MAX_MIP_LEVELS) == level).astype(jnp.float32)
-    return jnp.sum(row[base:base + MAX_MIP_LEVELS] * oh)
+    """row[base + level]."""
+    return row[base + level]
 
 
 def _bilinear(scene, mrow, level, u, v):

@@ -1,7 +1,7 @@
 """Device scene representation.
 
 The reference stores scene objects as C++ `std::variant`s in flat vectors
-with integer cross-references (scene.h:58-81). The TPU-native equivalent,
+with integer cross-references (scene.h:58-81). The device equivalent,
 built here, is one pytree of flat SoA device arrays: every variant becomes
 an integer tag + padded parameter rows, every object reference an index.
 Static facts (counts, which material types exist, image sizes) live in
@@ -125,20 +125,6 @@ class SceneMeta:
     # or homogeneous lanes sharing the heterogeneous event machine);
     # False lets volpath compile the plain zero-control tracking loop
     svox_ctrl: bool = False
-    # ONE homogeneous medium fills the whole scene: camera medium == 0,
-    # every shape opaque (material >= 0) with exterior == 0 and no
-    # interior. The medium id can never change along any path, so the
-    # fused volumetric megakernel (integrators/volpath_kernel.py) bakes
-    # it in (the vol_cbox class; vol_path_tracing.h:503-869 with its
-    # update_medium calls statically the identity)
-    uniform_medium: bool = False
-    # ONE heterogeneous grid medium with a monochrome density grid and a
-    # constant albedo, supervoxel table small enough for in-kernel
-    # one-hot MXU lookups: the fused grid-media megakernel
-    # (integrators/volpath_grid_kernel.py) can run the scene (the
-    # hetvol class; vol_path_tracing.h:554-629 free flight with the
-    # density field resolved by MXU matmul-gather)
-    grid_kernel_ok: bool = False
 
 
 @dataclass(frozen=True)
@@ -167,10 +153,15 @@ class Scene:
     tri_p0: Any          # (T,3) f32 precomputed for Moller-Trumbore
     tri_e1: Any          # (T,3) f32 v1 - v0
     tri_e2: Any          # (T,3) f32 v2 - v0
-    tri_woop_A: Any      # (3, 3Tc) f32 Woop transforms, CAST space (quad-merged)
-    tri_woop_b: Any      # (3Tc,) f32
-    tri_woop_A_occ: Any  # (3, 3T_occ) f32 occluder subset (see fp_woop_occ)
-    tri_woop_b_occ: Any  # (3T_occ,) f32
+    cast_tri: Any        # (9, Tc) f32 [p0 | e1 | e2] rows per CAST prim
+                         # (quad-merged; scene/compile.py)
+    cast_tri_occ: Any    # (9, T_occ) f32 occluder subset: cast prims NOT
+                         # on the scene's convex envelope (an envelope tri
+                         # can never block a shadow segment between two
+                         # on/inside-hull points; area/sphere-light NEE
+                         # only — envmap and media scenes keep the full
+                         # set, since their shadow rays can start outside
+                         # the hull)
     cast_src: Any        # (Tc,) i32 rep triangle id per cast prim
     cast_alt: Any        # (Tc,) i32 partner tri id (== cast_src if no quad)
     cast_quad: Any       # (Tc,) f32 1.0 where the cast prim is a quad
@@ -195,24 +186,6 @@ class Scene:
     cl_A: Any            # (K, 3, 3C) f32 dense Woop transform blocks
     cl_b: Any            # (K, 3C) f32
     cl_prim: Any         # (K, C) i32 triangle ids (-1 pad)
-    sw_A: Any            # (K*C, 12) f32 sweep-kernel Woop rows
-    sw_prim: Any         # (K*C, 1) f32 global tri ids (-1 pad)
-    sw_lane: Any         # (K, 16, C) f32 lane-major Woop + prim table (padded)
-    sw_aabb: Any         # (K, 8) f32 cluster [lo3 hi3 0 0]
-    sw_saabb: Any        # (K/G, 8) f32 supercluster AABBs (sweep gate)
-
-    # --- diffuse fast-path tables (integrators/path_kernel.py) --------------
-    fp_woop: Any         # (Tc, 12) f32 [Ax(4) Ay(4) Az(4)], CAST space
-    fp_woop_occ: Any     # (T_occ, 12) f32 occluder subset: tris NOT on the
-                         # scene's convex envelope (an envelope tri can
-                         # never block a shadow segment between two
-                         # on/inside-hull points; area/sphere-light NEE
-                         # only — envmap and media scenes keep the full
-                         # set, since their shadow rays can start outside
-                         # the hull)
-    fp_tri: Any          # (40, T) f32 packed per-triangle shading+material record
-    fp_light: Any        # (16, L) f32 packed light table (incl. sphere rows)
-    fp_sph: Any          # (S, 24) f32 packed per-sphere record
 
     # --- shape table -------------------------------------------------------
     shape_material_id: Any    # (NS,) i32
@@ -281,9 +254,6 @@ class Scene:
     svox_offset: Any     # (NV,) i32 into svox_data
     svox_res: Any        # (NV,3) i32 supervoxel majorant grid (gx,gy,gz)
     svox_data: Any       # (TOTS,8) f32 per-supervoxel majorant rgb | empty-skip dist | control (minorant) rgb | pad
-    fp_grid: Any         # (Z*Y, X) f32 mono density grid (x scale) for the
-                         # fused grid kernel's matmul-gather ((1,1) when
-                         # meta.grid_kernel_ok is False)
     med_tab: Any         # (NM,16) f32 wide medium row (see compile.py)
 
     # --- merged wide-row tables (see scene/soa.py) ----------------------------

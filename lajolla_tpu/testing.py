@@ -176,3 +176,85 @@ def make_single_material_scene(mat_xml_type, params=None, eta=1.5):
     b.lights.append(LightB(type=T.LIGHT_AREA, shape_id=1,
                            intensity=(5.0, 5.0, 5.0)))
     return compile_scene(b)
+
+
+def caster_parity_rays(scene, options, seed=0):
+    """The dense casters' parity workload on a film-sized ray batch, with
+    the distances a real wavefront step casts. Returns two ray sets, each
+    (o, d, tnear, tfar) with o, d (N, 3) and tnear, tfar (N,) float32:
+
+      closest: one camera ray per pixel plus one cosine-distributed
+               bounce from each camera hit (2 * W * H rays);
+      shadow:  one segment per pixel from the camera hit to a uniform
+               point on an emitting triangle, windowed like the path
+               integrator's NEE (W * H rays).
+
+    Camera hits come from the scalar Moller-Trumbore oracle; camera
+    misses get an empty window (tfar = 0)."""
+    import jax
+    import jax.numpy as jnp
+    from lajolla_tpu.dtypes import intersection_eps, shadow_eps
+    from lajolla_tpu.integrators.path import _primary_hash
+    from lajolla_tpu.ops.intersect import _brute_force_scalar
+
+    n = scene.meta.width * scene.meta.height
+    item = jnp.arange(n, dtype=jnp.int32)
+    _, o, d = _primary_hash(scene, options, item, jnp.uint32(seed))
+    eps = intersection_eps(scene.meta.scene_radius)
+    tn = jnp.full(n, eps, jnp.float32)
+    tf = jnp.full(n, jnp.inf, jnp.float32)
+    t, prim, _, _ = jax.vmap(_brute_force_scalar, (None, 0, 0, 0, 0))(
+        scene, o, d, tn, tf)
+    hit = prim >= 0
+    p = o + jnp.where(hit, t, 0.0)[:, None] * d
+    pc = jnp.maximum(prim, 0)
+    ng = jnp.cross(scene.tri_e1[pc], scene.tri_e2[pc])
+    ng = ng / jnp.linalg.norm(ng, axis=1, keepdims=True)
+    ng = jnp.where(jnp.sum(ng * d, axis=1, keepdims=True) > 0, -ng, ng)
+    k1, k2, k3, k4, k5 = jax.random.split(jax.random.PRNGKey(seed), 5)
+    r = jnp.sqrt(jax.random.uniform(k1, (n,)))
+    phi = 2.0 * jnp.pi * jax.random.uniform(k2, (n,))
+    a = jnp.where(jnp.abs(ng[:, 0:1]) > 0.9, jnp.array([0.0, 1.0, 0.0]),
+                  jnp.array([1.0, 0.0, 0.0]))
+    s = jnp.cross(ng, a)
+    s = s / jnp.linalg.norm(s, axis=1, keepdims=True)
+    tt = jnp.cross(ng, s)
+    db = ((r * jnp.cos(phi))[:, None] * s + (r * jnp.sin(phi))[:, None] * tt
+          + jnp.sqrt(jnp.maximum(1.0 - r * r, 0.0))[:, None] * ng)
+    tfb = jnp.where(hit, jnp.inf, 0.0).astype(jnp.float32)
+    closest = (jnp.concatenate([o, p]).astype(jnp.float32),
+               jnp.concatenate([d, db]).astype(jnp.float32),
+               jnp.concatenate([tn, tn]), jnp.concatenate([tf, tfb]))
+
+    emit = np.nonzero(np.asarray(scene.shape_light_id)[
+        np.asarray(scene.tri_shape)] >= 0)[0]
+    area = np.asarray(scene.tri_area)[emit]
+    li = jnp.asarray(emit)[jax.random.choice(
+        k3, emit.size, (n,), p=jnp.asarray(area / area.sum()))]
+    b1 = jnp.sqrt(jax.random.uniform(k4, (n,)))
+    b2 = jax.random.uniform(k5, (n,))
+    q = (scene.tri_p0[li] + ((1.0 - b2) * b1)[:, None] * scene.tri_e1[li]
+         + (b2 * b1)[:, None] * scene.tri_e2[li])
+    ds = q - p
+    dist = jnp.linalg.norm(ds, axis=1)
+    eps_s = shadow_eps(scene.meta.scene_radius)
+    shadow = (p.astype(jnp.float32),
+              (ds / jnp.maximum(dist, 1e-20)[:, None]).astype(jnp.float32),
+              jnp.full(n, eps_s, jnp.float32),
+              jnp.where(hit, (1.0 - eps_s) * dist, 0.0).astype(jnp.float32))
+    return closest, shadow
+
+
+def occluder_triangles(scene):
+    """Triangle ids behind the occluder subset (both members of each
+    quad cast prim in cast_tri_occ): what the scalar oracle must test to
+    answer the same any-hit question as the dense occlusion caster."""
+    full = np.asarray(scene.cast_tri).T
+    occ = np.asarray(scene.cast_tri_occ).T
+    src, alt = np.asarray(scene.cast_src), np.asarray(scene.cast_alt)
+    ids = set()
+    for row in occ:
+        c = np.nonzero((full == row).all(axis=1))[0]
+        if c.size:
+            ids.update((int(src[c[0]]), int(alt[c[0]])))
+    return np.asarray(sorted(ids), np.int32)

@@ -31,11 +31,7 @@ class Timer:
 
 @contextlib.contextmanager
 def device_trace(log_dir):
-    """Capture a device profile for the enclosed region (no-op on
-    backends without profiler support)."""
+    """Capture a device profile of the enclosed region into log_dir."""
     import jax
-    try:
-        with jax.profiler.trace(log_dir):
-            yield
-    except Exception:
+    with jax.profiler.trace(log_dir):
         yield

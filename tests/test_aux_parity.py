@@ -23,6 +23,8 @@ from lajolla_tpu.render import render
 from lajolla_tpu.scene.compile import compile_scene
 from lajolla_tpu.scene.parser import parse_scene_to_builder
 
+from scene_fixtures import SCENES
+
 REF = "/root/reference/scenes"
 GOLD = os.path.join(os.path.dirname(__file__), "golden_ref")
 
@@ -52,7 +54,8 @@ _scene_cache = {}
 
 def _load(xml):
     if xml not in _scene_cache:
-        b = parse_scene_to_builder(f"{REF}/{xml}")
+        root = SCENES if xml.startswith("cbox/") else REF
+        b = parse_scene_to_builder(f"{root}/{xml}")
         b.camera.width = b.camera.height = 64
         _scene_cache[xml] = (compile_scene(b), b.options)
     return _scene_cache[xml]

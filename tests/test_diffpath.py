@@ -19,20 +19,16 @@ import os
 import numpy as np
 import pytest
 
-REF = '/root/reference/scenes'
+from scene_fixtures import CBOX
 
-_jax = pytest.importorskip('jax')
-pytestmark = pytest.mark.skipif(
-    _jax.default_backend() == 'tpu',
-    reason='CPU-only (platform-independent estimator plumbing; keeps '
-           'the TPU suite budget for perf/bias gates)')
+REF = '/root/reference/scenes'
 
 
 def _cbox(res=32):
     from lajolla_tpu.scene.parser import parse_scene_to_builder
     from lajolla_tpu.scene.compile import compile_scene
 
-    b = parse_scene_to_builder(f'{REF}/cbox/cbox.xml')
+    b = parse_scene_to_builder(CBOX)
     b.camera.width = res
     b.camera.height = res
     return compile_scene(b), b.options

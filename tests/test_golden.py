@@ -26,6 +26,8 @@ from lajolla_tpu.render import render
 from lajolla_tpu.scene.compile import compile_scene
 from lajolla_tpu.scene.parser import parse_scene_to_builder
 
+from scene_fixtures import CBOX
+
 REF = "/root/reference/scenes"
 GOLD_DIR = os.path.join(os.path.dirname(__file__), "golden_ref")
 
@@ -38,7 +40,7 @@ def load_lowres(path, res=64):
 
 
 def test_cbox_brightness():
-    scene, opts = load_lowres(f"{REF}/cbox/cbox.xml", 64)
+    scene, opts = load_lowres(CBOX, 64)
     opts = dataclasses.replace(opts, samples_per_pixel=16)
     img = render(scene, opts)
     assert np.isfinite(img).all()
@@ -85,9 +87,9 @@ def test_volpath_cbox_brightness():
 # 0.103-0.118 (hetvol gates on the 2-seed average -> noise/sqrt(2)).
 # Thresholds sit ~1.6x the measured max — every scene now gates at
 # <= 0.15 (the r3 4x4 gates ran 0.24-0.37 on the heavy scenes);
-# tests/test_northstar.py carries the tight TPU-side gates.
+# tests/test_northstar.py carries the tight GPU-side gates.
 GOLD_SCENES = {
-    "cbox": (f"{REF}/cbox/cbox.xml", 64, 0.045, (2,)),
+    "cbox": (CBOX, 64, 0.045, (2,)),
     "veach_mi": (f"{REF}/veach_mi/mi.xml", 64, 0.15, (2,)),
     "vol_cbox": (f"{REF}/volpath_test/vol_cbox.xml", 32, 0.15, (2,)),
     "hetvol": (f"{REF}/volpath_test/hetvol.xml", 32, 0.14, (2, 7)),

@@ -4,7 +4,6 @@ BVH-vs-brute-force equivalence on random meshes."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from lajolla_tpu.ops.bvh import build_bvh, bvh_traverse, bvh_occluded
 from lajolla_tpu.ops.intersect import ray_triangle, ray_sphere
@@ -146,149 +145,3 @@ def test_binned_matches_brute_force():
                           jnp.asarray(tnear), jnp.asarray(tfar))
     np.testing.assert_array_equal(np.asarray(occ),
                                   np.isfinite(np.asarray(t_ref)))
-
-
-@pytest.mark.skipif(jax.default_backend() != 'tpu',
-                    reason="Pallas TPU kernel (sweep caster)")
-def test_sweep_matches_brute_force():
-    """Oracle for the streaming cluster-sweep caster
-    (ops/intersect_sweep.py): closest hits and occlusion on a random
-    soup must agree with the all-triangles reference. Runs only on the
-    real-TPU suite pass."""
-    from lajolla_tpu.ops.intersect_sweep import (intersect_sweep,
-                                                 occluded_sweep, pack_sweep)
-    from lajolla_tpu.ops.intersect_binned import build_clusters
-
-    rng = np.random.default_rng(13)
-    centers = rng.uniform(-1, 1, size=(3000, 1, 3))
-    tri = (centers + rng.normal(scale=0.05, size=(3000, 3, 3))).astype(
-        np.float32)
-    lo = np.minimum(np.minimum(tri[:, 0], tri[:, 1]), tri[:, 2])
-    hi = np.maximum(np.maximum(tri[:, 0], tri[:, 1]), tri[:, 2])
-    b = build_bvh(lo.astype(np.float32), hi.astype(np.float32))
-    cl = build_clusters(b, tri[:, 0].astype(np.float32),
-                        (tri[:, 1] - tri[:, 0]).astype(np.float32),
-                        (tri[:, 2] - tri[:, 0]).astype(np.float32))
-    p = pack_sweep(cl)
-
-    class S:
-        sw_A = jnp.asarray(p['sw_A'])
-        sw_prim = jnp.asarray(p['sw_prim'])
-        sw_lane = jnp.asarray(p['sw_lane'])
-        sw_aabb = jnp.asarray(p['sw_aabb'])
-        sw_saabb = jnp.asarray(p['sw_saabb'])
-        cl_lo = jnp.asarray(cl['cl_lo'])
-        cl_hi = jnp.asarray(cl['cl_hi'])
-
-    sc = S()
-    fscene = FakeScene(tri)
-    N = 2048
-    o = rng.uniform(-2, 2, size=(N, 3)).astype(np.float32)
-    d = rng.normal(size=(N, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    tn = jnp.zeros(N)
-    tf = jnp.full(N, jnp.inf)
-
-    t_ref = jax.vmap(lambda o, d: _brute(fscene, o, d))(jnp.asarray(o),
-                                                        jnp.asarray(d))
-    import lajolla_tpu.ops.intersect_sweep as SW
-    old_res = SW.RESIDENT_BYTES
-    try:
-        for res_bytes in (old_res, 0):
-            # res_bytes=0 forces the HBM-streamed _call_list kernel
-            # (sponza class) so BOTH compiled kernels get the oracle
-            SW.RESIDENT_BYTES = res_bytes
-            t_sw, prim, u, v = jax.jit(
-                lambda o_, d_: intersect_sweep(sc, o_, d_, tn, tf))(
-                    jnp.asarray(o), jnp.asarray(d))
-            np.testing.assert_allclose(
-                np.where(np.isfinite(t_sw), t_sw, 1e9),
-                np.where(np.isfinite(np.asarray(t_ref)),
-                         np.asarray(t_ref), 1e9),
-                rtol=3e-4, atol=3e-5)
-            # resolve invariant: finite t_best => resolved prim
-            assert bool(np.all((np.asarray(prim) >= 0) ==
-                               np.isfinite(np.asarray(t_sw))))
-
-            occ = np.asarray(jax.jit(
-                lambda o_, d_: occluded_sweep(sc, o_, d_, tn, tf))(
-                    jnp.asarray(o), jnp.asarray(d)))
-            np.testing.assert_array_equal(occ,
-                                          np.isfinite(np.asarray(t_ref)))
-    finally:
-        SW.RESIDENT_BYTES = old_res
-
-
-def test_sweep_interpret_matches_brute_force():
-    """CPU oracle for the resident sweep caster: same checks as the
-    TPU-gated test, run in Pallas interpreter mode — so kernel changes
-    (front-to-back breaks, the tolerance-based hit resolve, the any-hit
-    decided-break) are gated even when the TPU backend is down. Also
-    asserts the resolve invariant: every ray with a finite t_best gets
-    a valid prim (the failure mode of an exact-equality resolve)."""
-    import lajolla_tpu.ops.intersect_sweep as SW
-    from lajolla_tpu.ops.intersect_binned import build_clusters
-
-    rng = np.random.default_rng(21)
-    centers = rng.uniform(-1, 1, size=(1200, 1, 3))
-    tri = (centers + rng.normal(scale=0.06, size=(1200, 3, 3))).astype(
-        np.float32)
-    lo = np.minimum(np.minimum(tri[:, 0], tri[:, 1]), tri[:, 2])
-    hi = np.maximum(np.maximum(tri[:, 0], tri[:, 1]), tri[:, 2])
-    b = build_bvh(lo.astype(np.float32), hi.astype(np.float32))
-    cl = build_clusters(b, tri[:, 0].astype(np.float32),
-                        (tri[:, 1] - tri[:, 0]).astype(np.float32),
-                        (tri[:, 2] - tri[:, 0]).astype(np.float32),
-                        max_tris=128)
-    p = SW.pack_sweep(cl)
-
-    class S:
-        sw_A = jnp.asarray(p['sw_A'])
-        sw_prim = jnp.asarray(p['sw_prim'])
-        sw_lane = jnp.asarray(p['sw_lane'])
-        sw_aabb = jnp.asarray(p['sw_aabb'])
-        sw_saabb = jnp.asarray(p['sw_saabb'])
-        cl_lo = jnp.asarray(cl['cl_lo'])
-        cl_hi = jnp.asarray(cl['cl_hi'])
-
-    sc = S()
-    fscene = FakeScene(tri)
-    N = 512
-    o = rng.uniform(-2, 2, size=(N, 3)).astype(np.float32)
-    d = rng.normal(size=(N, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    tn = jnp.zeros(N)
-    tf = jnp.full(N, jnp.inf)
-
-    t_ref = jax.vmap(lambda o, d: _brute(fscene, o, d))(jnp.asarray(o),
-                                                        jnp.asarray(d))
-    old, old_len = SW.INTERPRET, SW.LIST_LEN
-    old_res = SW.RESIDENT_BYTES
-    SW.INTERPRET = True
-    try:
-        for list_len, res_bytes in ((old_len, old_res), (4, old_res),
-                                    (old_len, 0)):
-            # list_len=4 forces worklist OVERFLOW on most blocks,
-            # exercising the supercluster-granularity fallback sweep;
-            # res_bytes=0 forces the HBM-streamed _call_list kernel
-            # (sponza class: DMA'd rows + break-aware prefetch)
-            SW.LIST_LEN = list_len
-            SW.RESIDENT_BYTES = res_bytes
-            t_sw, prim, u, v = SW.intersect_sweep(sc, jnp.asarray(o),
-                                                  jnp.asarray(d), tn, tf)
-            occ = np.asarray(SW.occluded_sweep(sc, jnp.asarray(o),
-                                               jnp.asarray(d), tn, tf))
-            t_sw = np.asarray(t_sw)
-            np.testing.assert_allclose(
-                np.where(np.isfinite(t_sw), t_sw, 1e9),
-                np.where(np.isfinite(np.asarray(t_ref)),
-                         np.asarray(t_ref), 1e9),
-                rtol=3e-4, atol=3e-5)
-            # resolve invariant: finite t_best => resolved prim
-            assert bool(np.all((np.asarray(prim) >= 0) ==
-                               np.isfinite(t_sw)))
-            np.testing.assert_array_equal(
-                occ, np.isfinite(np.asarray(t_ref)))
-    finally:
-        SW.INTERPRET, SW.LIST_LEN = old, old_len
-        SW.RESIDENT_BYTES = old_res

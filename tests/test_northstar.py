@@ -2,9 +2,9 @@
 256 spp, per-pixel RMSE < 1% vs the CPU reference.
 
 The reference image (tests/golden_ref/cbox_full.npz) is the shim-built
-reference binary's own render of the exact workload
-(/root/reference/scenes/cbox/cbox.xml patched to 256 spp; rendered by
-tools/ref_renders.py stage `northstar`). The metric is RMSE relative to
+reference binary's own render of the exact workload (the cbox scene
+patched to 256 spp; rendered by tools/ref_renders.py stage `northstar`;
+scenes/cbox is the same visible geometry, pinned by the aux goldens). The metric is RMSE relative to
 the reference's RMS magnitude (lajolla_tpu.tools.rel_rmse — the "<1%
 RMSE" formulation).
 
@@ -16,16 +16,17 @@ agree to 0.01%. The 256-spp gate therefore sits just above its noise
 floor at 2.2%; the < 1% bias claim is gated by the 4096-spp comparison
 below, whose noise floor (~0.67%) is actually below 1%.
 
-TPU-only: the full-res renders take seconds on-chip but hours on the
-CPU test mesh.
+GPU-only (marker `chip`): the full-res renders take seconds on the
+card but hours on the CPU test mesh.
 """
 
 import dataclasses
 import os
 
-import jax
 import numpy as np
 import pytest
+
+from scene_fixtures import CBOX
 
 from lajolla_tpu.render import render
 from lajolla_tpu.scene.compile import compile_scene
@@ -36,13 +37,12 @@ GOLD = os.path.join(os.path.dirname(__file__), "golden_ref",
                     "cbox_full.npz")
 
 
-@pytest.mark.skipif(jax.default_backend() != 'tpu',
-                    reason="full-res 256spp render (TPU-only)")
-def test_cbox_northstar_rmse():
+@pytest.mark.chip
+def test_cbox_northstar_rmse(gpu):
     g = np.load(GOLD)
     ref = g["img"]
     assert ref.shape == (512, 512, 3)
-    b = parse_scene_to_builder("/root/reference/scenes/cbox/cbox.xml")
+    b = parse_scene_to_builder(CBOX)
     scene = compile_scene(b)
     opts = dataclasses.replace(b.options, samples_per_pixel=256)
     img = np.asarray(render(scene, opts, seed=3))
@@ -54,9 +54,8 @@ def test_cbox_northstar_rmse():
         "(256-spp noise floor is 1.9%)"
 
 
-@pytest.mark.skipif(jax.default_backend() != 'tpu',
-                    reason="full-res 4096spp render (TPU-only)")
-def test_cbox_bias_below_1pct():
+@pytest.mark.chip
+def test_cbox_bias_below_1pct(gpu):
     """The < 1% RMSE claim at a spp where the comparison's noise floor
     (~0.67%) is below 1%: ours @4096spp vs reference @4096spp."""
     path = os.path.join(os.path.dirname(__file__), "golden_ref",
@@ -66,7 +65,7 @@ def test_cbox_bias_below_1pct():
                     "(tools/ref_renders.py + /tmp/ref_hispp)")
     g = np.load(path)
     ref = g["img"]
-    b = parse_scene_to_builder("/root/reference/scenes/cbox/cbox.xml")
+    b = parse_scene_to_builder(CBOX)
     scene = compile_scene(b)
     opts = dataclasses.replace(b.options, samples_per_pixel=4096)
     img = np.asarray(render(scene, opts, seed=5))
@@ -76,15 +75,14 @@ def test_cbox_bias_below_1pct():
     assert err < 0.01, f"bias gate: rel-RMSE {100 * err:.3f}% >= 1%"
 
 
-@pytest.mark.skipif(jax.default_backend() != 'tpu',
-                    reason="matpreview bias render (TPU-only)")
-def test_matpreview_glass_bias():
+@pytest.mark.chip
+def test_matpreview_glass_bias(gpu):
     """Near-specular glass-chain bias gate at 64x64, where the error at
     96 spp is ~0.06 noise: a depth-compounding estimator bias of ~2x the
-    noise floor fails. This exact comparison caught the DEFAULT-precision
-    einsum bug (frame transforms lowered to bf16 MXU passes on TPU),
-    which measured 0.21 here while the CPU render of the identical
-    program measured 0.06 — TPU-only numerics need a TPU-side gate."""
+    noise floor fails. This exact comparison once caught DEFAULT-precision
+    frame-transform einsums running at reduced precision on an
+    accelerator (0.21 here against 0.06 for the CPU render of the same
+    program) — device numerics need a device-side gate."""
     path = os.path.join(os.path.dirname(__file__), "golden_ref",
                         "matpreview.npz")
     if not os.path.exists(path):
@@ -104,15 +102,13 @@ def test_matpreview_glass_bias():
     assert err < 0.13, f"glass bias gate: rel-RMSE {err:.4f} >= 0.13"
 
 
-@pytest.mark.skipif(jax.default_backend() != 'tpu',
-                    reason="high-spp bias renders (TPU-only)")
+@pytest.mark.chip
 @pytest.mark.parametrize("name,scene_path,spp", [
     ("hetvol", "/root/reference/scenes/volpath_test/hetvol.xml", 512),
     ("sponza", "/root/reference/scenes/sponza/sponza.xml", 512),
 ])
-def test_hispp_bias_gate(name, scene_path, spp):
-    """Self-calibrating bias gates for the two hardest scenes (VERDICT
-    r4 missing #3): their low-spp golden gates are noise-calibrated
+def test_hispp_bias_gate(name, scene_path, spp, gpu):
+    """Self-calibrating bias gates for the two hardest scenes: their low-spp golden gates are noise-calibrated
     (thresholds 0.10-0.14), so a smooth few-percent estimator bias
     would pass them. Here the reference golden is rendered at 4096 spp
     (tools/ref_renders.py stage `hispp`), we render the same square

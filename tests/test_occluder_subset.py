@@ -1,5 +1,5 @@
 """Dedicated oracle for the convex-envelope occluder subset
-(scene/compile.py "occluder subset (fast path)").
+(scene/compile.py "occluder subset").
 
 Claim under test: a triangle on the scene's convex envelope can never
 intersect a shadow segment whose endpoints both lie on/inside the hull
@@ -12,7 +12,7 @@ Also gates the exclusions: media scenes (volumetric NEE rays originate
 at scatter points outside the hull, vol_path_tracing.h:335-439) and
 envmap scenes (shadow rays to infinity) must keep the full set, and
 degenerate triangles must be dropped from the subset (they can never
-produce a Woop hit: zero normal -> dz == 0, guarded out).
+produce a hit: zero normal -> det == 0, guarded out).
 """
 
 import numpy as np
@@ -22,14 +22,15 @@ import pytest
 from lajolla_tpu.scene.parser import parse_scene
 from lajolla_tpu.ops.intersect import _occluded_batched
 
+from scene_fixtures import SCENES
+
 REF = "/root/reference/scenes"
 
 
 def _occluded_full(scene, o, d, tnear, tfar):
-    """Same arithmetic as _occluded_batched, over the FULL woop table."""
+    """Same arithmetic as _occluded_batched, over the FULL cast table."""
     import types as _t
-    full = _t.SimpleNamespace(tri_woop_A_occ=scene.tri_woop_A,
-                              tri_woop_b_occ=scene.tri_woop_b,
+    full = _t.SimpleNamespace(cast_tri_occ=scene.cast_tri,
                               cast_occ_quad=scene.cast_quad)
     return _occluded_batched(full, o, d, tnear, tfar)
 
@@ -98,15 +99,16 @@ def _check_subset_oracle(scene, seed=3, n=4096):
 
 
 @pytest.mark.parametrize("scene_file,want_smaller", [
-    ("cbox/cbox.xml", True),       # 5 room walls drop (10 of 32 tris)
+    ("cbox/cbox.xml", True),       # walls + block bottoms drop (16 of 38)
     ("veach_mi/mi.xml", False),    # sphere lights extend the hull past
                                    # every plate: nothing drops (still
                                    # exercises the subset code path)
 ])
 def test_occluded_subset_matches_full(scene_file, want_smaller):
-    scene, _ = parse_scene(f"{REF}/{scene_file}")
-    T = scene.tri_woop_A.shape[1] // 3
-    T_occ = scene.tri_woop_A_occ.shape[1] // 3
+    root = SCENES if scene_file.startswith("cbox/") else REF
+    scene, _ = parse_scene(f"{root}/{scene_file}")
+    T = scene.cast_tri.shape[1]
+    T_occ = scene.cast_tri_occ.shape[1]
     if want_smaller:
         assert T_occ < T, "subset not constructed — nothing under test"
     _check_subset_oracle(scene)
@@ -119,8 +121,7 @@ def test_media_scene_keeps_full_set():
     identity for any scene with media."""
     scene, _ = parse_scene(f"{REF}/volpath_test/vol_cbox.xml")
     assert scene.meta.num_media > 0
-    assert scene.fp_woop_occ.shape == scene.fp_woop.shape
-    assert scene.tri_woop_A_occ.shape == scene.tri_woop_A.shape
+    assert scene.cast_tri_occ.shape == scene.cast_tri.shape
 
 
 def _hull_scene(rng, n_cloud=40, n_inner=30, degenerate=False):
@@ -177,22 +178,22 @@ def _hull_scene(rng, n_cloud=40, n_inner=30, degenerate=False):
 def test_randomized_hull_subset(seed):
     rng = np.random.default_rng(seed)
     scene = _hull_scene(rng)
-    T = scene.tri_woop_A.shape[1] // 3
-    T_occ = scene.tri_woop_A_occ.shape[1] // 3
+    T = scene.cast_tri.shape[1]
+    T_occ = scene.cast_tri_occ.shape[1]
     # every hull face must have been dropped (they ARE the envelope)
     assert T_occ < T
     _check_subset_oracle(scene, seed=seed + 100, n=2048)
 
 
 def test_degenerate_tris_excluded():
-    """A zero-area triangle can never register a Woop hit (dz == 0 is
+    """A zero-area triangle can never register a hit (det == 0 is
     guarded out), so the subset must drop it — and occlusion results
     must still match the full set."""
     rng = np.random.default_rng(7)
     scene_d = _hull_scene(rng, degenerate=True)
     rng = np.random.default_rng(7)
     scene_n = _hull_scene(rng, degenerate=False)
-    Td = scene_d.tri_woop_A_occ.shape[1] // 3
-    Tn = scene_n.tri_woop_A_occ.shape[1] // 3
+    Td = scene_d.cast_tri_occ.shape[1]
+    Tn = scene_n.cast_tri_occ.shape[1]
     assert Td == Tn, "degenerate tri must not enter the occluder subset"
     _check_subset_oracle(scene_d, seed=11, n=2048)

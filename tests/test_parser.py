@@ -6,11 +6,13 @@ import pytest
 from lajolla_tpu.scene.parser import parse_scene
 from lajolla_tpu.scene import types as T
 
+from scene_fixtures import CBOX
+
 REF = "/root/reference/scenes"
 
 
 def test_cbox_stats():
-    sc, opts = parse_scene(f"{REF}/cbox/cbox.xml")
+    sc, opts = parse_scene(CBOX)
     m = sc.meta
     assert m.num_shapes == 8
     assert m.num_materials == 5

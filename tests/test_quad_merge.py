@@ -16,13 +16,16 @@ from lajolla_tpu.scene.parser import parse_scene_to_builder
 from lajolla_tpu.scene.compile import compile_scene
 from lajolla_tpu.ops.intersect import (_brute_force_batched,
                                        _brute_force_scalar,
-                                       _occluded_batched)
+                                       _occluded_batched, ray_triangle)
+
+from scene_fixtures import SCENES
 
 REF = "/root/reference/scenes"
 
 
 def _scene(rel):
-    return compile_scene(parse_scene_to_builder(f"{REF}/{rel}.xml"))
+    root = SCENES if rel.startswith("cbox/") else REF
+    return compile_scene(parse_scene_to_builder(f"{root}/{rel}.xml"))
 
 
 @pytest.fixture(scope="module")
@@ -30,17 +33,22 @@ def cbox():
     return _scene("cbox/cbox")
 
 
-def test_pair_counts(cbox):
+@pytest.mark.parametrize("rel,tris,casts,merged,occluders", [
+    ("cbox/cbox", 38, 26, 12, 13),
+    ("veach_mi/mi", None, 6, 6, None),   # every plate pair merges
+])
+def test_pair_counts(rel, tris, casts, merged, occluders):
     """Deterministic merge coverage (a perf proxy: cast prims = dense
-    tests per ray in the fused kernels). cbox: 38 tris -> 26 cast prims
-    and a 13-prim occluder subset; veach_mi: every plate pair merges."""
-    assert cbox.cast_src.shape[0] == 26
-    assert int((np.asarray(cbox.cast_alt) !=
-                np.asarray(cbox.cast_src)).sum()) == 12
-    assert cbox.tri_woop_A_occ.shape[1] // 3 == 13
-    v = _scene("veach_mi/mi")
-    assert v.cast_src.shape[0] == 6
-    assert int((np.asarray(v.cast_alt) != np.asarray(v.cast_src)).sum()) == 6
+    tests per ray). cbox: 38 tris -> 26 cast prims and a 13-prim
+    occluder subset."""
+    sc = _scene(rel)
+    if tris is not None:
+        assert sc.meta.num_triangles == tris
+    assert sc.cast_src.shape[0] == casts
+    assert int((np.asarray(sc.cast_alt) !=
+                np.asarray(sc.cast_src)).sum()) == merged
+    if occluders is not None:
+        assert sc.cast_tri_occ.shape[1] == occluders
 
 
 def test_merged_pairs_are_parallelograms(cbox):
@@ -115,8 +123,8 @@ def test_quad_caster_matches_scalar_oracle(rel):
     m = pb >= 0
     # prim ids must match EXCEPT on coplanar t-ties (box bottoms
     # resting on the floor): both casters report a valid hit at the
-    # same distance (up to fp rounding between the Woop and
-    # Moller-Trumbore forms) and the winner choice is arbitrary
+    # same distance (up to fp rounding between the cast prim's and
+    # the member triangle's frames) and the winner choice is arbitrary
     diff = pb[m] != ps[m]
     rel = np.abs(tb[m][diff] - ts[m][diff]) / np.abs(ts[m][diff])
     assert (rel <= 1e-4).all(), (diff.sum(), rel.max())
@@ -150,24 +158,42 @@ def test_quad_occlusion_matches_per_tri(cbox):
         fl = u + v > 1
         u = np.where(fl, 1 - u, u)
         v = np.where(fl, 1 - v, v)
-        return P0[ti] + u[:, None] * E1[ti] + v[:, None] * E2[ti]
+        return P0[ti] + u[:, None] * E1[ti] + v[:, None] * E2[ti], ti
 
-    a, c = pts(1), pts(2)
+    (a, ta), (c, _) = pts(1), pts(2)
     d = c - a
     dist = np.linalg.norm(d, axis=1)
     d = (d / np.maximum(dist[:, None], 1e-20)).astype(np.float32)
-    eps = 1e-3 * dist
+    a = a.astype(np.float32)
+    tn = (1e-3 * dist).astype(np.float32)
+    tf = ((1 - 1e-3) * dist).astype(np.float32)
     occ_q = np.asarray(jax.jit(_occluded_batched)(
-        sc, jnp.asarray(a.astype(np.float32)), jnp.asarray(d),
-        jnp.asarray(eps.astype(np.float32)),
-        jnp.asarray(((1 - 1e-3) * dist).astype(np.float32))))
+        sc, jnp.asarray(a), jnp.asarray(d), jnp.asarray(tn),
+        jnp.asarray(tf)))
     # raw-triangle reference via the scalar closest-hit oracle
     ts, ps, _, _ = jax.jit(jax.vmap(
         lambda o, d, tn, tf: _brute_force_scalar(sc, o, d, tn, tf)))(
-            jnp.asarray(a.astype(np.float32)), jnp.asarray(d),
-            jnp.asarray(eps.astype(np.float32)),
-            jnp.asarray(((1 - 1e-3) * dist).astype(np.float32)))
+            jnp.asarray(a), jnp.asarray(d), jnp.asarray(tn),
+            jnp.asarray(tf))
     occ_t = np.asarray(ps) >= 0
     # the occluder subset may differ from raw triangles only by
-    # envelope prims, which can never block these segments
-    np.testing.assert_array_equal(occ_q, occ_t)
+    # envelope prims, which can never block these segments. The one
+    # allowed difference is a grazing tie: a segment lying in its start
+    # triangle's plane (floor to block bottom) that crosses a coplanar
+    # edge of a face standing on that plane, where the merged quad's
+    # frame and the member triangle's round the edge barycentric to
+    # opposite sides of 0
+    bad = np.nonzero(occ_q != occ_t)[0]
+    assert len(bad) <= n // 1000, len(bad)
+    na = np.cross(E1[ta], E2[ta])
+    na /= np.linalg.norm(na, axis=1, keepdims=True)
+    off = np.abs(np.sum(na * (c - a), axis=1))
+    for k in bad:
+        assert off[k] <= 1e-4 * dist[k], (k, off[k] / dist[k])
+        t, u, v, _ = map(np.asarray, ray_triangle(
+            a[k], d[k], P0, E1, E2, tn[k], tf[k]))
+        w = 1.0 - u - v
+        inside = ((u >= -1e-5) & (v >= -1e-5) & (w >= -1e-5) &
+                  (t > tn[k]) & (t < tf[k]))
+        edge = np.minimum(np.minimum(np.abs(u), np.abs(v)), np.abs(w))
+        assert (inside & (edge <= 1e-5)).any(), k

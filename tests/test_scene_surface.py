@@ -10,7 +10,7 @@ shipped scene class fails the suite instead of only failing a user.
 Scene classes gated here and nowhere else:
   - pixel_filter_test: tent + gaussian reconstruction filters in a real
     render (filter warps are unit-tested in test_filters.py only)
-  - simple_sphere: sphere-geometry-only scene through the fast path
+  - simple_sphere: sphere-geometry-only scene
   - volpath_test1: vol_path_version 1 single-chunk end-to-end
   - volpath_test6: the final volpath engine on the version-6 scene
   - hetvol_colored: per-channel (colored) grid majorants
@@ -24,9 +24,6 @@ heavy-tailed (single seeds 0.16-0.32 at 64 spp; the 512-spp golden's
 own noise floors the metric ~0.08), so it gates on the 2-seed average
 plus a film-mean ratio (ours converges to 0.0401 vs ref 0.0398 at
 128 total spp).
-
-CPU-only: 6 fresh scene shapes = 6 extra TPU compiles (~minutes each
-remotely) for coverage that is platform-independent estimator plumbing.
 """
 import dataclasses
 import os
@@ -39,11 +36,6 @@ from test_golden import rel_rmse
 REF = '/root/reference/scenes'
 GOLD = os.path.join(os.path.dirname(__file__), 'golden_ref')
 
-jax = pytest.importorskip('jax')
-pytestmark = pytest.mark.skipif(
-    jax.default_backend() == 'tpu',
-    reason='CPU-only surface sweep (6 scene compiles; platform-'
-           'independent coverage)')
 
 # golden name -> (scene rel path, gate spp, d8 rel-RMSE threshold)
 GATES = [

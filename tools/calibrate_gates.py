@@ -2,7 +2,7 @@
 (tests/golden_ref) at the gate test spp — the numbers the thresholds in
 tests/test_golden.py are calibrated from (~1.5-2x measured).
 
-Run on TPU:  python tools/calibrate_gates.py [scene ...]
+Run on the GPU:  python tools/calibrate_gates.py [scene ...]
 """
 
 import dataclasses
@@ -11,8 +11,9 @@ import sys
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tests"))   # test_golden's imports
 
 from lajolla_tpu.render import render                         # noqa: E402
 from lajolla_tpu.scene.compile import compile_scene           # noqa: E402

@@ -1,12 +1,9 @@
-"""Round-3 profiling: where does a matpreview/sponza bounce go?
-
-Times, on the real TPU, for a parsed scene:
-  - argsort of N sort keys (done 4x per bounce today)
-  - intersect_sweep / occluded_sweep (sorted and unsorted)
+"""Where does a bounce go on a large (binned-caster) scene such as
+matpreview or sponza? Times, on the device JAX runs on:
+  - intersect_binned / occluded_binned on coherent and incoherent rays
   - one full wavefront advance step (cast + shade glue)
-  - the shade glue alone (advance step minus the casts, estimated)
 
-Usage: python tools/profile_binned.py [scene] [lanes]
+Usage: python tools/profile_binned.py SCENE.xml [lanes]
 """
 
 import os
@@ -20,14 +17,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from lajolla_tpu.ops.intersect_binned import (intersect_binned,
+                                              occluded_binned)
 from lajolla_tpu.scene.compile import compile_scene
 from lajolla_tpu.scene.parser import parse_scene_to_builder
-
-REF = "/root/reference/scenes"
-SCENES = {
-    "matpreview": f"{REF}/matpreview/matpreview.xml",
-    "sponza": f"{REF}/sponza/sponza.xml",
-}
+from lajolla_tpu.utils.cache import enable_compile_cache
 
 
 def timeit(fn, *args, n=5):
@@ -41,17 +35,19 @@ def timeit(fn, *args, n=5):
 
 
 def main():
-    name = sys.argv[1] if len(sys.argv) > 1 else "matpreview"
+    path = sys.argv[1]
     lanes = int(sys.argv[2]) if len(sys.argv) > 2 else 32768
-    b = parse_scene_to_builder(SCENES[name])
+    enable_compile_cache()
+    b = parse_scene_to_builder(path)
     scene = compile_scene(b)
     opts = b.options
     m = scene.meta
-    K = scene.sw_aabb.shape[0]
-    C = scene.sw_A.shape[0] // K
-    print(f"{name}: {m.num_triangles} tris, K={K} clusters x C={C}, "
-          f"use_binned={m.use_binned}, film {m.width}x{m.height}, "
-          f"lanes={lanes}")
+    K, C = scene.cl_prim.shape
+    dev = jax.devices()[0]
+    print(f"{os.path.basename(path)}: {m.num_triangles} tris, K={K} "
+          f"clusters x C={C}, use_binned={m.use_binned}, film "
+          f"{m.width}x{m.height}, lanes={lanes}, device {dev.platform} "
+          f"{dev.device_kind}")
 
     # representative rays: primary rays from the camera (coherent-ish),
     # and a hash-scrambled copy (incoherent, like bounce 3+)
@@ -66,24 +62,12 @@ def main():
     tn = jnp.zeros(lanes) + 1e-3
     tf = jnp.full(lanes, jnp.inf)
 
-    from lajolla_tpu.ops import intersect_sweep as sw
-
-    keys = jax.jit(sw._sort_keys)
-    t = timeit(lambda o, dd: jnp.argsort(keys(scene, o, dd)), org, d)
-    print(f"argsort(keys) {lanes}: {t * 1e3:.2f} ms "
-          f"({lanes / t / 1e6:.1f} M/s)")
-
-    cast_s = jax.jit(lambda o, dd: sw._sorted_call(
-        scene, o, dd, tn, tf, False))
-    cast_u = jax.jit(lambda o, dd: sw._call(scene, o, dd, tn, tf, False))
-    occ_s = jax.jit(lambda o, dd: sw._sorted_call(
-        scene, o, dd, tn, tf, True))
+    cast = jax.jit(lambda o, dd: intersect_binned(scene, o, dd, tn, tf))
+    occ = jax.jit(lambda o, dd: occluded_binned(scene, o, dd, tn, tf))
     for label, fn, o_, d_ in [
-            ("cast sorted coherent", cast_s, org, d),
-            ("cast unsorted coherent", cast_u, org, d),
-            ("cast sorted incoherent", cast_s, org_i, d_i),
-            ("cast unsorted incoherent", cast_u, org_i, d_i),
-            ("occl sorted coherent", occ_s, org, d)]:
+            ("cast coherent", cast, org, d),
+            ("cast incoherent", cast, org_i, d_i),
+            ("occl coherent", occ, org, d)]:
         t = timeit(fn, o_, d_)
         print(f"{label}: {t * 1e3:.2f} ms ({lanes / t / 1e6:.2f} Mrays/s)")
 

@@ -1,10 +1,7 @@
-"""Per-component TPU timing for the hetvol event machine.
-
-hetvol is 235x below its CPU bar and the round-4 changes regressed it
-2x with every CPU proxy improving — so before restructuring, measure
-where one outer event-machine step actually spends its time on TPU
-(VERDICT r5 task 2 prerequisite). Components, each timed inside a
-jitted fori_loop with a value dependence so XLA cannot hoist or DCE:
+"""Per-component device timing for the volumetric event machine: where
+one outer event-machine step spends its time. Components, each timed
+inside a jitted fori_loop with a value dependence so XLA cannot hoist or
+DCE:
 
   cast     vmapped cast_scene (brute tri + sphere for hetvol's 14 tris)
   sigmas   vmapped _sigmas: ONE octo-row density gather + albedo const
@@ -13,8 +10,9 @@ jitted fori_loop with a value dependence so XLA cannot hoist or DCE:
            + masked pdf algebra per micro-step)
   step     one full outer advance: _render_volpath_block wall / iters
 
-usage: python tools/profile_hetvol.py [lanes] [scene]
-(scene in {hetvol, vol_cbox}; default hetvol, lanes 16384)
+usage: python tools/profile_hetvol.py SCENE.xml [lanes]
+(a volpath scene such as hetvol or vol_cbox; default 16384 lanes).
+Prints one JSON line.
 """
 import functools
 import json
@@ -24,18 +22,15 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tools.perf import acquire_device_lock, ledger_append  # noqa: E402
-
 STEPS = 30
 
 
 def main():
-    lanes = int(sys.argv[1]) if len(sys.argv) > 1 else 16384
-    scene_name = sys.argv[2] if len(sys.argv) > 2 else "hetvol"
-    acquire_device_lock(f"profile_hetvol {lanes}")
+    path = sys.argv[1]
+    lanes = int(sys.argv[2]) if len(sys.argv) > 2 else 16384
     import jax
-    jax.config.update('jax_compilation_cache_dir', '/root/work/jaxcache')
-    jax.config.update('jax_persistent_cache_min_compile_time_secs', 5.0)
+    from lajolla_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
@@ -44,13 +39,11 @@ def main():
     from lajolla_tpu.integrators.media import med_row
     from lajolla_tpu.scene.geometry import cast_scene
 
-    path = {"hetvol": "/root/reference/scenes/volpath_test/hetvol.xml",
-            "vol_cbox": "/root/reference/scenes/volpath_test/vol_cbox.xml"
-            }[scene_name]
     scene, options = parse_scene(path)
-    w, h = scene.meta.width, scene.meta.height
-    out = {"scene": f"{scene_name}_prof", "lanes": lanes, "knobs": {
-        "K_FF": vp.K_FF}}
+    dev = jax.devices()[0]
+    out = {"scene": os.path.basename(path), "lanes": lanes,
+           "knobs": {"K_FF": vp.K_FF},
+           "device": {"platform": dev.platform, "kind": dev.device_kind}}
 
     # primary rays + in-grid sample points
     item = jnp.arange(lanes, dtype=jnp.int32)
@@ -149,7 +142,6 @@ def main():
                          "wall_s": round(min(ts), 3),
                          "ms_per_iter": round(min(ts) * 1e3 / iters, 2)}
     out["mpaths_one_path_per_lane"] = round(lanes / min(ts) / 1e6, 4)
-    ledger_append(out)
     print(json.dumps(out))
 
 

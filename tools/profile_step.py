@@ -1,12 +1,8 @@
-"""Per-step anatomy of the general wavefront queue on a binned scene:
-time the full vmapped _advance_lane step (casts + shading + NEE) vs
-the casters alone, with evolving state for a realistic bounce mix.
+"""Per-step anatomy of the general wavefront queue: time the full
+vmapped _advance_lane step (casts + shading + NEE) vs the casters alone,
+with evolving state for a realistic bounce mix. Prints one JSON line.
 
-matpreview r5: end-to-end is ~45 ms/step at 16384 lanes while the
-sweep casters cost ~6 ms — this tool pins down the split so the
-shading/NEE glue work is attacked with data (VERDICT r5 task 3).
-
-usage: python tools/profile_step.py SCENE [lanes] [steps]
+usage: python tools/profile_step.py SCENE.xml [lanes] [steps]
 """
 import json
 import os
@@ -15,28 +11,20 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tools.perf import acquire_device_lock, ledger_append  # noqa: E402
 
 
 def main():
-    scene_name = sys.argv[1] if len(sys.argv) > 1 else "matpreview"
+    path = sys.argv[1]
     lanes = int(sys.argv[2]) if len(sys.argv) > 2 else 16384
     steps = int(sys.argv[3]) if len(sys.argv) > 3 else 20
-    acquire_device_lock(f"profile_step {scene_name} {lanes}")
     import jax
-    cache = os.environ.get("LAJOLLA_CACHE_DIR", "/root/work/jaxcache")
-    if cache:
-        jax.config.update('jax_compilation_cache_dir', cache)
-        jax.config.update('jax_persistent_cache_min_compile_time_secs', 5.0)
+    from lajolla_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
     from lajolla_tpu.scene.parser import parse_scene
     import lajolla_tpu.integrators.path as P
 
-    path = {"matpreview": "/root/reference/scenes/matpreview/matpreview.xml",
-            "sponza": "/root/reference/scenes/sponza/sponza.xml",
-            "disney": "/root/reference/scenes/disney_bsdf_test/"
-                      "disney_bsdf.xml"}[scene_name]
     scene, options = parse_scene(path)
     w, h = scene.meta.width, scene.meta.height
     n_q = -(-(w * h) // lanes) * lanes
@@ -54,7 +42,9 @@ def main():
     kidx = (jnp.arange(8, dtype=jnp.uint32) * jnp.uint32(0x9E3779B9) +
             jnp.uint32(0x9E3779B9))[None, :]
 
-    out = {"scene": f"{scene_name}_step", "lanes": lanes, "steps": steps}
+    dev = jax.devices()[0]
+    out = {"scene": os.path.basename(path), "lanes": lanes, "steps": steps,
+           "device": {"platform": dev.platform, "kind": dev.device_kind}}
 
     def time_loop(name, body_fn, init):
         f = jax.jit(lambda c: jax.lax.fori_loop(0, steps, body_fn, c))
@@ -97,7 +87,6 @@ def main():
         return (jnp.where(occ[:, None], o, o2), d2)
     time_loop("cast_closest_plus_anyhit", cast_body, (org0, d0))
 
-    ledger_append(out)
     print(json.dumps(out))
 
 

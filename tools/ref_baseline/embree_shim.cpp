@@ -17,7 +17,7 @@
 // measured number a *conservative lower bound* on our speedup claims
 // only for cbox-class scenes, which is the only scene bench.py uses.
 //
-// This is baseline-measurement tooling, not part of the TPU framework.
+// This is baseline-measurement tooling, not part of the renderer.
 
 #include <embree3/rtcore.h>
 #include <algorithm>
